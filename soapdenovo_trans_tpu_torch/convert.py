@@ -1,0 +1,66 @@
+"""State conversion between the JAX package and the port.
+
+``to_torch`` turns one of the JAX package's state NamedTuples —
+``KmerTable``, ``SortedRun``, ``DBG``, ``EdgeGraph``, ``PatchTable``,
+``ArcSet``, with numpy (or any array-like) fields — into the port's
+NamedTuple of the same name on a given device.  ``to_numpy`` turns a
+port NamedTuple back into numpy arrays with the JAX package's dtypes,
+optionally wrapped in a given class (e.g. the JAX package's own).
+
+Dtype rules: uint32 k-mer/row lanes <-> int64 lanes; int32 counts and
+coverages stay int32; every other int32 array (node, edge and arc ids,
+lengths) becomes int64; bool and uint8 are unchanged.  Live counts
+become Python ints, except ``SortedRun.n``, which stays a device scalar.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .graph import arcs, dbg, unitigs
+from .ops import dictionary
+
+_TYPES = {cls.__name__: cls for cls in (
+    dictionary.KmerTable, dictionary.SortedRun, dbg.DBG,
+    unitigs.EdgeGraph, arcs.PatchTable, arcs.ArcSet)}
+_LANES = {"keys", "rows"}
+_COUNTS = {("KmerTable", "count"), ("KmerTable", "l_cov"),
+           ("KmerTable", "r_cov"), ("SortedRun", "count"),
+           ("DBG", "out_cov")}
+_SCALARS = {"n", "n_edges"}
+
+
+def to_torch(nt, device):
+    """JAX-package NamedTuple (numpy fields) -> port NamedTuple."""
+    name = type(nt).__name__
+    out = []
+    for field, x in zip(nt._fields, nt):
+        x = np.asarray(x)
+        if field in _SCALARS:
+            out.append(torch.tensor(int(x), device=device)
+                       if name == "SortedRun" else int(x))
+            continue
+        if field in _LANES:
+            x = x.astype(np.int64)
+        elif x.dtype.kind in "iu" and x.dtype != np.uint8:
+            x = x.astype(np.int32 if (name, field) in _COUNTS else np.int64)
+        out.append(torch.from_numpy(np.array(x)).to(device))
+    return _TYPES[name](*out)
+
+
+def to_numpy(nt, cls=None):
+    """Port NamedTuple -> numpy fields with the JAX package's dtypes,
+    as ``cls`` (default: the port's own NamedTuple class)."""
+    out = []
+    for field, x in zip(nt._fields, nt):
+        if field in _SCALARS:
+            out.append(np.int32(int(x)))
+            continue
+        x = x.cpu().numpy()
+        if field in _LANES:
+            x = x.astype(np.uint32)
+        elif x.dtype == np.int64:
+            x = x.astype(np.int32)
+        out.append(x)
+    return (cls or type(nt))(*out)

@@ -1,0 +1,99 @@
+"""ctypes binding for the native FASTA/FASTQ/BAM batch decoder
+(``csrc/fastx_decoder.cpp`` at the repository root) — the C++
+replacement for the reference's readseq1by1.c + aio read-ahead.
+
+A copy of ``available`` and ``read_batches`` from
+``soapdenovo_trans_tpu/io/native.py`` (its 2-bit upload packer is left
+out: the port uploads uint8 codes): the port loads no module of the JAX
+package, so a run of the port stands on its own where only torch is
+installed.  The library is compiled with g++ (zlib linked) at first use
+into this package's ``_build/``; without a toolchain ``available()`` is
+False and the callers take the pure-Python readers, which yield the
+same batches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(os.path.dirname(_PKG), "csrc", "fastx_decoder.cpp")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+_lib = None
+_checked = False
+
+
+def _build() -> str:
+    """Compile the decoder once per source content; returns the path of
+    the shared library."""
+    with open(_SRC, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    so = os.path.join(BUILD_DIR, f"libfastx_{digest}.so")
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        subprocess.run(["g++", "-O3", "-shared", "-fPIC", _SRC, "-o", tmp,
+                        "-lz"], check=True, capture_output=True, timeout=120)
+        os.replace(tmp, so)
+    return so
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    global _lib, _checked
+    if _checked:
+        return _lib
+    _checked = True
+    try:
+        lib = ctypes.CDLL(_build())
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lib.fastx_open.restype = ctypes.c_void_p
+    lib.fastx_open.argtypes = [ctypes.c_char_p]
+    lib.fastx_next_batch.restype = ctypes.c_long
+    lib.fastx_next_batch.argtypes = [
+        ctypes.c_void_p,
+        np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        ctypes.c_long, ctypes.c_long]
+    lib.fastx_close.restype = None
+    lib.fastx_close.argtypes = [ctypes.c_void_p]
+    _lib = lib
+    return _lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def read_batches(path: str, batch_size: int, max_len: int
+                 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Yield (codes (B, L) uint8, lengths (B,) int32) until EOF.
+    The final batch is zero-length-padded to batch_size."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native decoder unavailable")
+    h = lib.fastx_open(path.encode())
+    if not h:
+        raise FileNotFoundError(path)
+    try:
+        while True:
+            codes = np.full((batch_size, max_len), 4, np.uint8)
+            lengths = np.zeros(batch_size, np.int32)
+            n = lib.fastx_next_batch(h, codes, lengths,
+                                     batch_size, max_len)
+            if n < 0:
+                raise ValueError(f"{path}: malformed FASTA/FASTQ")
+            if n == 0:
+                return
+            yield codes, lengths
+            if n < batch_size:
+                return
+    finally:
+        lib.fastx_close(h)
