@@ -13,20 +13,33 @@ Phases, each of which raises on failure:
    of ``tests/test_merge_path.py`` and two sorted 32M-row runs (one
    counting build unit each); rows and counts must be equal position by
    position; median CUDA-event times of both at 32M + 32M rows;
-4. the port's ``pregraph`` on a small simulated fixture on ``cpu`` and on
-   ``cuda`` (K = 23 through the kernel, K = 31 through the three-lane
-   sort) must write byte-identical stage files;
-5. the slice at real size: ``pregraph -K 23`` on 1,000,000 simulated
+4. the port's ``pregraph`` and then ``contig -g`` on a small simulated
+   fixture on ``cpu`` and on ``cuda`` (K = 23 through the kernel, K = 31
+   through the three-lane sort) must write byte-identical stage files;
+5. pregraph at real size: ``pregraph -K 23`` on 1,000,000 simulated
    read pairs (2x100 bp, insert 300, 10,000 transcripts of 1,500 bp,
    half with SNP isoforms, 0.2% errors, seed 0) through the CLI entry
    point, with the kernel's launch count reset just before; the table
    must count every valid K-window, the .kmerFreq histogram must sum to
-   the distinct k-mers, and edges and preArcs must exist.
+   the distinct k-mers, and edges and preArcs must exist;
+6. the contig slice: ``pregraph`` and then the contig stage in memory
+   (``run_contig_cmd`` with the pregraph result, as ``all`` runs it) on
+   600,000 pairs of the same simulation (6,000 transcripts, seed 0),
+   with the launch count reset before the pregraph and the peak-memory
+   statistics before the contig stage.  The contig stage at 1,000,000
+   pairs takes about 950 s on an H100 (31,426 Tour-Bus waves of
+   30 ms), more than this script's time allows; 600,000 pairs keep the
+   whole script near half of it.  Checks: the .contig
+   headers and sequence lengths agree with .ContigIndex; .updated.edge
+   declares as many edges as there are ids; the sequences are ACGT
+   only; every K-window of every contig made of one pregraph edge is a
+   k-mer of the pregraph table (looked up on the card).
 
-The second-to-last line is a JSON object describing the kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and
-nothing of the JAX package (``soapdenovo_trans_tpu``); the reads come
-from ``perf_e2e.synth``, which imports neither.
+The line before the last two is a JSON object of the contig stage's
+numbers; the second-to-last describes the kernel; the last line is
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing
+of the JAX package (``soapdenovo_trans_tpu``); the reads come from
+``perf_e2e.synth``, which imports neither.
 """
 
 from __future__ import annotations
@@ -46,9 +59,12 @@ import torch
 K = 23
 SMOKE_PAIRS = 1_000_000
 SMOKE_TX = 10_000
+CONTIG_PAIRS = 600_000
+CONTIG_TX = 6_000
 UNIT_ROWS = 32_000_000
 STAGE_FILES = (".kmerFreq", ".vertex", ".preArc", ".preGraphBasic",
                ".peGrads", ".edge.gz")
+CONTIG_FILES = (".contig", ".ContigIndex", ".updated.edge", ".Arc")
 
 
 def log(msg: str) -> None:
@@ -141,6 +157,11 @@ def run_cli(cli, cfg: str, out: str, k: int, device: str):
     return cli.main(["pregraph", "-s", cfg, "-K", str(k), "-o", out])
 
 
+def run_contig_files(cli, out: str, device: str):
+    os.environ["SOAPDENOVO_TORCH_DEVICE"] = device
+    return cli.main(["contig", "-g", out])
+
+
 def read_stage_file(path: str) -> bytes:
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rb") as fh:
@@ -157,11 +178,14 @@ def phase_cpu_gpu(cli, pg_stage, perf_e2e, tmp: str) -> None:
             for device in ("cpu", "cuda"):
                 outs[device] = os.path.join(tmp, f"small_k{k}_{device}")
                 run_cli(cli, cfg, outs[device], k, device)
-            for ext in STAGE_FILES:
+            for device in ("cpu", "cuda"):
+                run_contig_files(cli, outs[device], device)
+            for ext in STAGE_FILES + CONTIG_FILES:
                 if read_stage_file(outs["cpu"] + ext) != \
                         read_stage_file(outs["cuda"] + ext):
                     raise AssertionError(f"K={k}: cpu and cuda {ext} differ")
-            log(f"[parity] K={k}: cpu and cuda stage files identical")
+            log(f"[parity] K={k}: cpu and cuda pregraph and contig files "
+                f"identical")
     finally:
         pg_stage.TARGET_BUILD_ROWS = default_rows
 
@@ -221,6 +245,139 @@ def phase_slice(cli, merge_path, perf_e2e, tmp: str) -> int:
     return launches
 
 
+def read_contig_fasta(path: str):
+    """[(id, declared length, sequence)] of a .contig file."""
+    recs = []
+    with open(path) as fh:
+        for line in fh:
+            line = line.rstrip("\n")
+            if line.startswith(">"):
+                f = line[1:].split()
+                recs.append([int(f[0]), int(f[2]), []])
+            else:
+                recs[-1][2].append(line)
+    return [(i, n, "".join(parts)) for i, n, parts in recs]
+
+
+def check_contig_files(out: str, n_contigs: int):
+    """Checks 1-3 of phase 6; returns the .contig records."""
+    recs = read_contig_fasta(out + ".contig")
+    for cid, n, seq in recs:
+        if len(seq) != n:
+            raise AssertionError(f"contig {cid}: header length {n}, "
+                                 f"sequence {len(seq)}")
+        if seq.strip("ACGT"):
+            raise AssertionError(f"contig {cid} holds a non-ACGT base")
+    with open(out + ".ContigIndex") as fh:
+        n_ids = int(fh.readline().split()[1])
+        fh.readline()
+        index = [tuple(int(x) for x in line.split()[:2]) for line in fh]
+    if index != [(cid, n) for cid, n, _ in recs]:
+        raise AssertionError(".contig headers and .ContigIndex disagree")
+    with open(out + ".updated.edge") as fh:
+        declared = int(fh.readline().split()[1])
+        records = sum(1 for line in fh if line.startswith(">"))
+    if not declared == records == n_ids == n_contigs:
+        raise AssertionError(
+            f".updated.edge declares {declared} edges and holds {records}; "
+            f".ContigIndex has {n_ids} ids; the stage made {n_contigs}")
+    return recs
+
+
+def table_windows(kmer, dictionary, table, seqs, k: int, dev):
+    """(windows, windows found in the table) over the K-windows of seqs,
+    chopped and looked up on the card in chunks."""
+    from soapdenovo_trans_tpu_torch.ops import bits
+
+    total = found = 0
+    seqs = sorted(seqs, key=len)
+    for lo in range(0, len(seqs), 4096):
+        chunk = seqs[lo:lo + 4096]
+        width = len(chunk[-1])
+        codes = np.full((len(chunk), width), 4, np.uint8)
+        for i, s in enumerate(chunk):
+            codes[i, :len(s)] = bits.encode_seq(s)
+        lens = torch.tensor([len(s) for s in chunk], device=dev)
+        stream = kmer.chop_reads(torch.from_numpy(codes).to(dev), lens, k)
+        rows = dictionary.lookup(table.keys, stream.kmers[stream.valid])
+        total += int(stream.valid.sum())
+        found += int((rows >= 0).sum())
+    return total, found
+
+
+def n50(lengths) -> int:
+    acc = 0
+    for n in sorted(lengths, reverse=True):
+        acc += n
+        if 2 * acc >= sum(lengths):
+            return n
+    return 0
+
+
+def phase_contig(cli, merge_path, perf_e2e, smi: str, tmp: str):
+    from soapdenovo_trans_tpu_torch.graph import contig_merge
+    from soapdenovo_trans_tpu_torch.ops import dictionary, kmer
+
+    t0 = time.time()
+    cfg = perf_e2e.synth(tmp, n_tx=CONTIG_TX, n_pairs=CONTIG_PAIRS, seed=0)
+    log(f"[contig] simulated {CONTIG_PAIRS} pairs in "
+        f"{time.time() - t0:.1f}s")
+    out = os.path.join(tmp, "contig")
+    dev = torch.device("cuda")
+    merge_path.LAUNCHES = 0
+    t0 = time.time()
+    res = run_cli(cli, cfg, out, K, "cuda")
+    torch.cuda.synchronize()
+    pregraph_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    args = cli.build_parser().parse_args(["contig", "-g", out])
+    result, table, k = cli.run_contig_cmd(args, dev, res)
+    torch.cuda.synchronize()
+    contig_s = time.time() - t0
+    launches = merge_path.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    if launches < 1:
+        raise AssertionError("the contig slice never launched the merge "
+                             "kernel")
+
+    ctg = result.contigs
+    recs = check_contig_files(out, ctg.n)
+    seqs = contig_merge.contig_sequences(ctg, table, k)
+    members = torch.bincount(result.edge_contig[result.edge_contig >= 0],
+                             minlength=ctg.n)
+    single = [seqs[i] for i in
+              torch.nonzero(members == 1)[:, 0].tolist()]
+    n_single, hit_single = table_windows(kmer, dictionary, table, single,
+                                         k, dev)
+    if n_single == 0 or hit_single != n_single:
+        raise AssertionError(f"{n_single - hit_single} of {n_single} "
+                             f"K-windows of single-edge contigs are not "
+                             f"pregraph k-mers")
+    n_all, hit_all = table_windows(kmer, dictionary, table, seqs, k, dev)
+    lengths = [n for _, n, _ in recs]
+    tb = result.tourbus
+    log(f"[contig] {ctg.n} contigs ({len(recs)} in .contig), "
+        f"{len(single)} of one pregraph edge: all their {n_single} "
+        f"K-windows are table k-mers; {hit_all} of {n_all} K-windows of "
+        f"all contigs are")
+    numbers = {
+        "card": smi, "pairs": CONTIG_PAIRS, "edges": res.edges.n_edges,
+        "pre_arcs": res.arcs.n, "pregraph_s": pregraph_s,
+        "contig_s": contig_s, "phase_s": result.phase_seconds,
+        "laps": result.laps, "waves": tb["waves"],
+        "productive_waves": tb["productive"], "merged": tb["merged"],
+        "s_per_wave": tb["s_per_wave"],
+        "contigs": len(recs), "total_len": sum(lengths),
+        "n50": n50(lengths), "table_window_share": hit_all / max(n_all, 1),
+        "peak_bytes": peak, "merge_launches": launches}
+    log(f"[contig] stage {contig_s:.1f}s, {tb['waves']} waves "
+        f"({tb['productive']} productive, {tb['merged']} bubbles merged, "
+        f"{numbers['s_per_wave'] * 1e3:.2f} ms a wave), peak "
+        f"{peak / 1e9:.2f} GB on {smi}")
+    return launches, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -242,12 +399,16 @@ def main() -> int:
     timing = phase_kernel(merge_path, dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_cpu_gpu(cli, pg_stage, perf_e2e, tmp)
-        launches = phase_slice(cli, merge_path, perf_e2e, tmp)
+        phase_slice(cli, merge_path, perf_e2e, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, numbers = phase_contig(cli, merge_path, perf_e2e,
+                                         smi.splitlines()[0], tmp)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "soapdenovo_trans_tpu"))
     if foreign:
         raise AssertionError(f"the port loaded JAX modules: {foreign[:5]}")
 
+    log("[contig] " + json.dumps(numbers))
     log(json.dumps({"kernels": [{
         "name": "merge_path", "route": "cuda",
         "source": "soapdenovo_trans_tpu_torch/csrc/merge_path.cu",

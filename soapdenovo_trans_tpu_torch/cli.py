@@ -1,16 +1,18 @@
 """Command-line interface of the PyTorch port.
 
-``pregraph`` takes the same flags, with the same defaults, as
-``python -m soapdenovo_trans_tpu pregraph`` (reference pregraph.c:118-185).
-The other stages (``contig``, ``map``, ``scaff``, ``all``) and
-``pregraph -R`` are not ported yet and exit with a message.  The parser
-is this module's own: the port loads no module of the JAX package.
+``pregraph`` and ``contig`` take the same flags, with the same defaults,
+as ``python -m soapdenovo_trans_tpu pregraph`` / ``contig`` (reference
+pregraph.c:118-185, contig.c:311).  The other stages (``map``,
+``scaff``, ``all``), ``pregraph -R`` and ``contig -R`` are not ported yet
+and exit with a message.  The parser is this module's own: the port
+loads no module of the JAX package.
 
 The device comes from ``SOAPDENOVO_TORCH_DEVICE`` (default ``cuda``);
 a missing device is an error, never a silent fallback to the CPU.
 
 Usage:
     python -m soapdenovo_trans_tpu_torch pregraph -s reads.config -K 23 -o out
+    python -m soapdenovo_trans_tpu_torch contig -g out
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 READ_BATCH = 131072  # reads per IO batch
-NOT_PORTED = ("contig", "map", "scaff", "all")
+NOT_PORTED = ("map", "scaff", "all")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -52,6 +54,22 @@ def build_parser() -> argparse.ArgumentParser:
                          "sentinel entry (reference prlHashReads.c:207)")
     pg.add_argument("-R", dest="reps_tie", action="store_true",
                     help="record read paths (not ported yet)")
+
+    cg = sub.add_parser("contig", help="edge graph -> contigs")
+    cg.add_argument("-g", dest="out", required=True,
+                    help="graph prefix (pregraph output)")
+    cg.add_argument("-e", dest="edge_cov", type=int, default=2,
+                    help="delete edges with coverage <= this")
+    cg.add_argument("-M", dest="merge_level", type=int, default=1,
+                    help="strength of kmer-graph bubble merging 0..3")
+    cg.add_argument("-q", dest="light_out", type=int, default=5)
+    cg.add_argument("-Q", dest="light_flow", type=int, default=2)
+    cg.add_argument("-H", dest="high_arc", type=int, default=200)
+    cg.add_argument("-R", dest="reps_tie", action="store_true",
+                    help="solve repeats by read paths (not ported yet)")
+    cg.add_argument("-S", dest="short_cutoff", type=int, default=48,
+                    help="remove short-contig components below this "
+                         "length (reference cut_length, contig.c:333)")
     return ap
 
 
@@ -167,18 +185,70 @@ def run_pregraph_cmd(args, device: torch.device):
     return res
 
 
+def run_contig_cmd(args, device: torch.device, res=None):
+    """The contig stage, from the pregraph stage files (``res`` None) or
+    in memory from a ``PregraphResult``, as ``all`` runs it.  Writes
+    .contig/.ContigIndex/.updated.edge/.Arc; returns (ContigResult with
+    the contigs, and its edge map, in file order; table; k)."""
+    import dataclasses
+
+    from .graph import contig_merge
+    from .io import graph_files, stagefiles
+    from .stages import contig as contig_stage
+
+    if args.reps_tie:
+        sys.exit("contig -R is not ported yet")
+    if res is None:
+        # resume from the reference-format stage files
+        # (loadVertex/loadEdge/loadPreArcs, src/loadPreGraph.c:52-670)
+        table, edges, aset, k = graph_files.load_pregraph_files(
+            args.out, device)
+        print(f"[contig] loaded {edges.n_edges} edges, {aset.n} preArcs "
+              f"from {args.out}.vertex/.edge.gz/.preArc")
+    else:
+        k, table, edges, aset = res.k, res.table, res.edges, res.arcs
+
+    params = contig_stage.ContigParams(
+        weak_cvg=10 * args.edge_cov, merge_level=args.merge_level,
+        light_out_pct=args.light_out, light_flow_pct=args.light_flow,
+        high_arc_multi=args.high_arc, short_component=args.short_cutoff)
+    result = contig_stage.run_contig(edges, aset, k, params, table=table)
+    # renumber rows into .contig/.ContigIndex file order once, so the
+    # internal row ids downstream (map, scaff) == file ids - 1
+    file_perm = contig_merge.contig_file_perm(result.contigs, k)
+    ctg = contig_merge.reorder_contigs(result.contigs, file_perm)
+    perm = stagefiles.write_contig_fasta(
+        args.out + ".contig", ctg, table, k, arcs=ctg.arcs)
+    if perm != list(range(ctg.n)):
+        raise RuntimeError("contig file order is not the row order")
+    stagefiles.write_contig_index(args.out + ".ContigIndex", ctg, k, perm)
+    graph_files.write_contig_graph_files(args.out, ctg, table, k, perm)
+    print(f"[contig] wrote {args.out}.contig/.ContigIndex/"
+          f".updated.edge/.Arc")
+    old2new = torch.full_like(ctg.length, -1)
+    old2new[torch.as_tensor(file_perm, device=device)] = torch.arange(
+        ctg.n, device=device)
+    edge_contig = torch.where(result.edge_contig >= 0, old2new[
+        result.edge_contig.clamp(min=0)], -1)
+    return dataclasses.replace(result, contigs=ctg,
+                               edge_contig=edge_contig), table, k
+
+
 def main(argv=None):
-    """Parse ``argv`` and run the subcommand; returns the pregraph
-    result (a ``PregraphResult``)."""
+    """Parse ``argv`` and run the subcommand; returns its result (a
+    ``PregraphResult``, or ``run_contig_cmd``'s tuple)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in NOT_PORTED:
-        sys.exit(f"{argv[0]} is not ported yet: only pregraph runs on "
-                 f"the PyTorch port")
+        sys.exit(f"{argv[0]} is not ported yet: only pregraph and contig "
+                 f"run on the PyTorch port")
     args = build_parser().parse_args(argv)
     device = device_from_env()
     t0 = time.time()
-    res = run_pregraph_cmd(args, device)
-    print(f"[done] pregraph on {device} {time.time() - t0:.1f}s")
+    if args.cmd == "pregraph":
+        res = run_pregraph_cmd(args, device)
+    else:
+        res = run_contig_cmd(args, device)
+    print(f"[done] {args.cmd} on {device} {time.time() - t0:.1f}s")
     return res
 
 

@@ -2,8 +2,9 @@
 
 ``to_torch`` turns one of the JAX package's state NamedTuples —
 ``KmerTable``, ``SortedRun``, ``DBG``, ``EdgeGraph``, ``PatchTable``,
-``ArcSet``, with numpy (or any array-like) fields — into the port's
-NamedTuple of the same name on a given device.  ``to_numpy`` turns a
+``ArcSet``, ``Contigs`` (with its nested ``ArcSet``), with numpy (or any
+array-like) fields — into the port's NamedTuple of the same name on a
+given device.  ``to_numpy`` turns a
 port NamedTuple back into numpy arrays with the JAX package's dtypes,
 optionally wrapped in a given class (e.g. the JAX package's own).
 
@@ -18,12 +19,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .graph import arcs, dbg, unitigs
+from .graph import arcs, contig_merge, dbg, unitigs
 from .ops import dictionary
 
 _TYPES = {cls.__name__: cls for cls in (
     dictionary.KmerTable, dictionary.SortedRun, dbg.DBG,
-    unitigs.EdgeGraph, arcs.PatchTable, arcs.ArcSet)}
+    unitigs.EdgeGraph, arcs.PatchTable, arcs.ArcSet,
+    contig_merge.Contigs)}
 _LANES = {"keys", "rows"}
 _COUNTS = {("KmerTable", "count"), ("KmerTable", "l_cov"),
            ("KmerTable", "r_cov"), ("SortedRun", "count"),
@@ -36,6 +38,9 @@ def to_torch(nt, device):
     name = type(nt).__name__
     out = []
     for field, x in zip(nt._fields, nt):
+        if hasattr(x, "_fields"):  # nested NamedTuple (Contigs.arcs)
+            out.append(to_torch(x, device))
+            continue
         x = np.asarray(x)
         if field in _SCALARS:
             out.append(torch.tensor(int(x), device=device)
@@ -49,11 +54,16 @@ def to_torch(nt, device):
     return _TYPES[name](*out)
 
 
-def to_numpy(nt, cls=None):
+def to_numpy(nt, cls=None, nested=None):
     """Port NamedTuple -> numpy fields with the JAX package's dtypes,
-    as ``cls`` (default: the port's own NamedTuple class)."""
+    as ``cls`` (default: the port's own NamedTuple class).  A nested
+    NamedTuple field becomes ``nested[field]`` (default: its port
+    class)."""
     out = []
     for field, x in zip(nt._fields, nt):
+        if hasattr(x, "_fields"):
+            out.append(to_numpy(x, (nested or {}).get(field)))
+            continue
         if field in _SCALARS:
             out.append(np.int32(int(x)))
             continue

@@ -1,0 +1,341 @@
+"""Wave-parallel Tour-Bus bubble pass.
+
+Port of ``soapdenovo_trans_tpu/graph/tourbus.py``.  Reference behaviour
+being reproduced (not its algorithm): bubblePinch (src/bubble.c:
+2048-2135) Dijkstras from every edge, backtracks when a node is reached
+twice (comparePaths, :1766, bounded by MAXNODELENGTH), aligns the two
+path sequences (compareSequences, :425-497, >= 90% identity, length
+difference <= DIFF) and merges the minority path onto the majority
+(cleanUpRedundancy, :1617).  -M levels: M <= 1 -> MAXNODELENGTH 3 /
+DIFF 2, M == 2 -> 9/3, M >= 3 -> 30/10 (:2072-2086).
+
+One wave, over flat arrays:
+
+1. majority forest: every live edge t picks prev[t] = its
+   heaviest-coverage predecessor (one sort over the arc table);
+2. every non-forest arc (u -> t) is a bubble candidate: walking
+   <= MAXNODELENGTH steps up the forest from t and from u and
+   intersecting the two chains gives the fork s and the two paths;
+3. path sequences are gathered into fixed buffers and scored by LCS:
+   accept iff LCS >= 90% of the longer and |lenA - lenB| <= DIFF;
+4. accepted candidates claim their edges (scatter-min arbitration);
+   claim-disjoint winners apply together: minority edges (and twins)
+   deleted, their coverage added onto the covering majority edges,
+   their arcs remapped onto the majority path.
+
+Waves repeat to a fixpoint like the reference's HasChanged loop
+(:2123).  Inside a wave the host reads nothing; ``pinch`` reads the
+merge count and the candidate overflow once per wave.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Tuple
+
+import torch
+
+from . import arcs as arcs_mod
+from . import unitigs
+from .edge_clean import _gather_or, _scatter_true, rebuild_arcs
+
+SEQ_CAP = 384    # longest differing-path sequence considered per side
+CAND_CAP = 1024  # candidates arbitrated per wave (rest -> next wave)
+_BIG = 2**30
+
+
+def _params_for(merge_level: int) -> Tuple[int, int]:
+    """(MAXNODELENGTH, DIFF) per -M (bubble.c:2072-2086)."""
+    if merge_level <= 1:
+        return 3, 2
+    if merge_level == 2:
+        return 9, 3
+    return 30, 10
+
+
+def _lcs_scores(a, b, la, lb, cap: int):
+    """LCS length between a[:la] and b[:lb] per batch row — the
+    identity measure for compareSequences' F-matrix check
+    (bubble.c:425-497): matches / max(len) >= 0.9 accepts."""
+    pos = torch.arange(cap, device=a.device)[None, :]
+    ar = torch.where(pos < la[:, None], a, 254)
+    br = torch.where(pos < lb[:, None], b, 255)
+    row = torch.zeros((a.shape[0], cap + 1), dtype=torch.int64,
+                      device=a.device)
+    for i in range(cap):
+        cand = row[:, :-1] + (ar[:, i:i + 1] == br)
+        upper = torch.maximum(cand, row[:, 1:])
+        row = torch.cat([row[:, :1], torch.cummax(upper, 1).values], 1)
+    return row[:, -1]
+
+
+def _take(x, idx):
+    """take_along_axis over dim 1 with idx clamped into range."""
+    return torch.gather(x, 1, idx.clamp(0, x.shape[1] - 1))
+
+
+def _path_nodes(chain, s_idx, m_max: int, skip_last: int):
+    """Interior nodes of a backward chain, re-ordered fork->join.
+
+    chain[c, 0] is the join-side node, chain[c, s_idx[c]] the fork.
+    Returns (C, m_max) node ids in PATH order (first-after-fork
+    first), -1 padded.  skip_last=1 drops chain[0] (the majority
+    chain starts at t, which is not part of the differing segment).
+    """
+    r = torch.arange(m_max, device=chain.device)[None, :]
+    idx = s_idx[:, None] - 1 - r
+    return torch.where(idx >= skip_last, _take(chain, idx), -1)
+
+
+def _gather2(x, nodes, fill):
+    return _gather_or(x, nodes.reshape(-1), fill).reshape(nodes.shape)
+
+
+def _path_seq(nodes, eg, seq_cap: int):
+    """Concatenate the appended-base sequences of a node list into a
+    fixed (C, seq_cap) buffer; returns (seq, total_len)."""
+    lens = _gather2(eg.length, nodes, 0)                   # (C, m)
+    cum = torch.cumsum(lens, 1) - lens                      # exclusive starts
+    total = lens.sum(1)
+    p = torch.arange(seq_cap, device=nodes.device)[None, :, None]
+    inside = (p >= cum[:, None, :]) & (p < (cum + lens)[:, None, :])
+    seg = inside.to(torch.uint8).argmax(2)                  # (C, S)
+    hit = inside.any(2)
+    node_p = torch.gather(nodes, 1, seg)
+    off = _gather2(eg.seq_off, node_p, 0)
+    start = torch.gather(cum, 1, seg)
+    pool_idx = off + (torch.arange(seq_cap, device=nodes.device)[None, :]
+                      - start)
+    base = eg.seq_pool[pool_idx.clamp(0, eg.seq_pool.shape[0] - 1)]
+    return torch.where(hit, base, 250), total
+
+
+def _walk(prev, start, steps: int):
+    """(C, steps): [start, prev(start), prev(prev(start)), ...]."""
+    hist = [start]
+    for _ in range(steps - 1):
+        hist.append(_gather_or(prev, hist[-1], -1))
+    return torch.stack(hist, 1)
+
+
+def _majority_forest(aset, varc, cvg_f, e_cap: int):
+    """prev[t] = the live predecessor of t with the highest coverage
+    (lowest from-edge on ties): a sort on (to, -cvg, from), run as two
+    stable passes because the three keys do not fit one int64."""
+    to_k = torch.where(varc, aset.to_ed, _BIG)
+    low = torch.where(varc, -cvg_f, 0) * (1 << 32) + \
+        torch.where(varc, aset.from_ed, _BIG)
+    o = torch.sort(low, stable=True).indices
+    o = o[torch.sort(to_k[o], stable=True).indices]
+    s_to, s_from = to_k[o], aset.from_ed[o]
+    head = s_to < _BIG
+    head[1:] &= s_to[1:] != s_to[:-1]
+    prev = torch.full((e_cap + 1,), -1, dtype=torch.int64,
+                      device=s_to.device)
+    prev[torch.where(head, s_to, e_cap)] = s_from
+    return prev[:e_cap]
+
+
+def _wave(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet, failed,
+          m_max: int, diff: int, seq_cap: int, cand_cap: int):
+    e_cap = eg.length.shape[0]
+    dev = eg.length.device
+    me = torch.arange(e_cap, device=dev)
+    live_e = (me < eg.n_edges) & ~eg.deleted
+    varc = (aset.from_ed >= 0) & (aset.to_ed >= 0) & (aset.mult > 0) & \
+        _gather_or(live_e, aset.from_ed, False) & \
+        _gather_or(live_e, aset.to_ed, False)
+
+    # 1. majority forest
+    cvg_f = _gather_or(eg.cvg, aset.from_ed, 0)
+    prev = _majority_forest(aset, varc, cvg_f, e_cap)
+
+    # 2. candidates: non-forest arcs not yet examined-and-rejected
+    # since the last graph change, weakest minority first; the arc row
+    # is the last key, so equal-coverage candidates keep row order
+    tree = _gather_or(prev, aset.to_ed, -1) == aset.from_ed
+    cand = varc & ~tree & ~failed
+    n_cand = cand.sum()
+    order = torch.sort(torch.where(cand, cvg_f, _BIG), stable=True).indices
+    order = order[torch.sort((~cand[order]).to(torch.uint8),
+                             stable=True).indices]
+    cid_arc = order[:cand_cap]
+    cmask = cand[cid_arc]
+    u = torch.where(cmask, aset.from_ed[cid_arc], -1)
+    t0 = torch.where(cmask, aset.to_ed[cid_arc], -1)
+
+    # 3. backward chains up the forest, and their first meeting point
+    chain_a = _walk(prev, t0, m_max + 2)   # t, a1, ..  (fork at index >= 1)
+    chain_b = _walk(prev, u, m_max + 1)    # u, b1, ..
+    la_n, lb_n = chain_a.shape[1], chain_b.shape[1]
+    eq = (chain_a[:, :, None] == chain_b[:, None, :]) \
+        & (chain_a[:, :, None] >= 0) & (chain_b[:, None, :] >= 0)
+    ii = torch.arange(la_n, device=dev)[None, :, None]
+    jj = torch.arange(lb_n, device=dev)[None, None, :]
+    flat = torch.where(eq & (ii >= 1), ii + jj, _BIG).reshape(
+        eq.shape[0], -1)
+    best = flat.argmin(1)   # first minimum, as jnp.argmin
+    found = torch.gather(flat, 1, best[:, None])[:, 0] < _BIG
+    i_s = best // lb_n
+    j_s = best % lb_n
+    found &= cmask & ((i_s - 1) <= m_max) & (j_s <= m_max)
+    n_backtracked = found.sum()
+    s_node = torch.where(found, _take(chain_a, i_s[:, None])[:, 0], -1)
+
+    # 4. path interiors (fork->join order) + sequences + identity
+    maj = torch.where(found[:, None],
+                      _path_nodes(chain_a, i_s, m_max, skip_last=1), -1)
+    mnr = torch.where(found[:, None],
+                      _path_nodes(chain_b, j_s, m_max, skip_last=0), -1)
+    # reject degenerate/self-touching candidates: the two paths (and
+    # their twins) must be disjoint, and neither may touch s/t
+    tw_maj = _gather2(eg.twin, maj, -1)
+    tw_mnr = _gather2(eg.twin, mnr, -1)
+    ends = torch.stack([s_node, t0, _gather_or(eg.twin, s_node, -1),
+                        _gather_or(eg.twin, t0, -1)], 1)
+    maj_side = torch.cat([maj, tw_maj, ends], 1)
+    mnr_side = torch.cat([mnr, tw_mnr], 1)
+    clash = ((mnr_side[:, :, None] == maj_side[:, None, :])
+             & (mnr_side[:, :, None] >= 0)).flatten(1).any(1)
+    # palindromes inside the minority path
+    clash |= ((mnr == tw_mnr) & (mnr >= 0)).any(1)
+    found &= ~clash & (mnr >= 0).any(1) & (maj >= 0).any(1)
+
+    seq_a, len_a = _path_seq(maj, eg, seq_cap)
+    seq_b, len_b = _path_seq(mnr, eg, seq_cap)
+    compared = found & ((len_a - len_b).abs() <= diff) & \
+        (len_a <= seq_cap) & (len_b <= seq_cap)
+    n_compared = compared.sum()
+    lcs = _lcs_scores(seq_a, seq_b, torch.where(compared, len_a, 0),
+                      torch.where(compared, len_b, 0), seq_cap)
+    ok = compared & (lcs * 10 >= 9 * torch.maximum(len_a, len_b))
+
+    # 5. claim arbitration: winners are edge-disjoint within the wave;
+    # the lowest (minority coverage, candidate index) claim wins
+    c = maj.shape[0]
+    claims = torch.cat([maj, tw_maj, mnr, tw_mnr, ends], 1)
+    claims = torch.where(ok[:, None] & (claims >= 0), claims, e_cap)
+    rank = torch.where(
+        ok, (_gather2(eg.cvg, mnr, 0) * (mnr >= 0)).sum(1), _BIG)
+    q = claims.shape[1]
+    flat_e = claims.reshape(-1)
+    flat_rank = rank.repeat_interleave(q)
+    flat_cid = torch.arange(c, device=dev).repeat_interleave(q)
+    big = torch.full((e_cap + 1,), _BIG, dtype=torch.int64, device=dev)
+    win_rank = big.scatter_reduce(0, flat_e, flat_rank, "amin",
+                                  include_self=True)
+    tied = flat_rank == win_rank[flat_e]
+    win_cid = big.scatter_reduce(0, flat_e, torch.where(
+        tied, flat_cid, _BIG), "amin", include_self=True)
+    mine = (win_cid[flat_e] == flat_cid) | (flat_e == e_cap)
+    win = ok & mine.reshape(c, q).all(1)
+    n_merged = win.sum()
+
+    # 6. apply: delete minority (+twins), fold coverage positionally,
+    # remap minority arcs onto the covering majority node
+    mnr_w = torch.where(win[:, None], mnr, -1)
+    tw_mnr_w = torch.where(win[:, None], tw_mnr, -1)
+    del_idx = torch.cat([mnr_w, tw_mnr_w], 1).reshape(-1)
+    deleted2 = eg.deleted | _scatter_true(
+        e_cap, torch.where(del_idx >= 0, del_idx, e_cap))
+
+    # positional covering: minority node midpoint, scaled to the
+    # majority path, picks the covering majority node
+    lens_b = _gather2(eg.length, mnr, 0)
+    mid_b = torch.cumsum(lens_b, 1) - lens_b + lens_b // 2
+    scale = torch.where(len_b[:, None] > 0, mid_b * len_a[:, None]
+                        // len_b.clamp(min=1)[:, None], 0)
+    lens_a = _gather2(eg.length, maj, 0)
+    cum_a = torch.cumsum(lens_a, 1) - lens_a
+    inside = (scale[:, :, None] >= cum_a[:, None, :]) & \
+        (scale[:, :, None] < (cum_a + lens_a)[:, None, :]) & \
+        (maj[:, None, :] >= 0)
+    last_maj = _take(maj, ((maj >= 0).sum(1) - 1).clamp(min=0)[:, None])
+    cover = torch.where(inside.any(2),
+                        torch.gather(maj, 1,
+                                     inside.to(torch.uint8).argmax(2)),
+                        last_maj)  # fallback: last live majority node
+    cover = torch.where(mnr_w >= 0, cover, -1)
+    tw_cover = _gather2(eg.twin, cover, -1)
+
+    add_idx = torch.cat([cover, tw_cover], 1).reshape(-1)
+    add_val = torch.cat([_gather2(eg.cvg, mnr_w, 0),
+                         _gather2(eg.cvg, tw_mnr_w, 0)], 1).reshape(-1)
+    cvg2 = torch.cat([eg.cvg, eg.cvg.new_zeros(1)]).index_add_(
+        0, torch.where(add_idx >= 0, add_idx, e_cap),
+        torch.where(add_idx >= 0, add_val, 0))[:e_cap].clamp(
+            0, unitigs.MAX_EDGE_COV)
+
+    remap = torch.cat([me, me.new_zeros(1)])
+    for idx, to in ((mnr_w, cover), (tw_mnr_w, tw_cover)):
+        idx, to = idx.reshape(-1), to.reshape(-1)
+        remap[torch.where(idx >= 0, idx, e_cap)] = to.clamp(min=0)
+    remap = remap[:e_cap]
+
+    new_f = torch.where(aset.from_ed >= 0,
+                        _gather_or(remap, aset.from_ed, -1), -1)
+    new_t = torch.where(aset.to_ed >= 0,
+                        _gather_or(remap, aset.to_ed, -1), -1)
+    # drop self-loops created by two minority nodes covering one
+    # majority node (genuine pre-existing loops are preserved)
+    created_loop = (new_f == new_t) & (aset.from_ed != aset.to_ed)
+    new_f = torch.where(created_loop, -1, new_f)
+    new_t = torch.where(created_loop, -1, new_t)
+    new_mult = torch.where(new_f >= 0, aset.mult, 0)
+
+    overflow = (n_cand - cand_cap).clamp(min=0)
+    # examined candidates rejected by the checks themselves (not by
+    # claim arbitration — those must retry) are reported so `pinch`
+    # can skip them until the graph next changes.  When n_merged == 0
+    # no candidate was `ok` at all (the globally minimal (rank, cid)
+    # ok-candidate always wins every edge it claims), so marking all
+    # examined candidates failed is exact.
+    fail_mark = cmask & ~ok
+    return (cvg2, deleted2, new_f, new_t, new_mult,
+            n_backtracked, n_compared, n_merged, overflow,
+            cid_arc, fail_mark)
+
+
+def pinch(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet,
+          k: int, merge_level: int):
+    """Wave-parallel Tour-Bus to a fixpoint (bubble.c:2123-2126's
+    HasChanged loop).  Returns (eg, aset, stats): stats count pairs
+    backtracked, compared and merged, waves, productive waves (those
+    that merged), the loop's wall seconds and seconds per wave.
+
+    Every productive wave deletes at least one edge; between graph
+    changes each unproductive wave retires a fresh CAND_CAP-chunk of
+    the remaining candidates (the ``failed`` mask)."""
+    m_max, diff = _params_for(merge_level)
+    stats = {"backtracked": 0, "compared": 0, "merged": 0, "waves": 0,
+             "productive": 0, "seconds": 0.0}
+    t0 = time.time()
+    failed = torch.zeros_like(aset.from_ed, dtype=torch.bool)
+    while True:
+        stats["waves"] += 1
+        (cvg2, deleted2, nf, nt, nm, n_back, n_cmp, n_merged,
+         overflow, cid_arc, fail_mark) = _wave(
+            eg, aset, failed, m_max, diff, SEQ_CAP, CAND_CAP)
+        n, over, back, cmp_ = (int(x) for x in torch.stack(
+            [n_merged, overflow, n_back, n_cmp]).tolist())
+        stats["backtracked"] += back
+        stats["compared"] += cmp_
+        if n == 0:
+            if over == 0:
+                break
+            # chunk exhausted without a merge: retire it, examine the
+            # next CAND_CAP-chunk of candidates in the next wave
+            a_cap = failed.shape[0]
+            failed = failed | _scatter_true(
+                a_cap, torch.where(fail_mark, cid_arc, a_cap))
+            continue
+        stats["merged"] += n
+        stats["productive"] += 1
+        eg = eg._replace(cvg=cvg2, deleted=deleted2)
+        aset = rebuild_arcs(nf, nt, nm, eg.twin)
+        # the merge changed the graph: every rejected candidate may be
+        # mergeable now — clear the mask (sized to the rebuilt ArcSet)
+        failed = torch.zeros_like(aset.from_ed, dtype=torch.bool)
+    stats["seconds"] = time.time() - t0
+    stats["s_per_wave"] = stats["seconds"] / stats["waves"]
+    return eg, aset, stats

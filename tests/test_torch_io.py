@@ -1,17 +1,23 @@
 """Port parity: the host readers the port carries as its own copies
 (``io/libconfig``, ``io/bam``, ``io/native``, ``io/fastx``) give the
-same config and the same read batches as the JAX package's."""
+same config and the same read batches as the JAX package's, and the
+port's pregraph-file loader gives the JAX loader's state."""
 
 import dataclasses
 import gzip
 
 import numpy as np
 import pytest
+import torch
 
+import perf_e2e
 from soapdenovo_trans_tpu.io import fastx as jfastx
+from soapdenovo_trans_tpu.io import graph_files as jgraph_files
 from soapdenovo_trans_tpu.io import libconfig as jlibconfig
 from soapdenovo_trans_tpu.io import native as jnative
+from soapdenovo_trans_tpu_torch import cli as tcli
 from soapdenovo_trans_tpu_torch.io import fastx as tfastx
+from soapdenovo_trans_tpu_torch.io import graph_files as tgraph_files
 from soapdenovo_trans_tpu_torch.io import libconfig as tlibconfig
 from soapdenovo_trans_tpu_torch.io import native as tnative
 from tests.test_io import _write_fake_bam
@@ -82,3 +88,33 @@ def test_read_batches_match_jax(libs, native, purpose, monkeypatch):
         assert gi == wi
         np.testing.assert_array_equal(gl, wl)
         np.testing.assert_array_equal(gc, wc)
+
+
+@pytest.mark.parametrize("k", [23, 31])
+def test_load_pregraph_files_matches_jax(k, tmp_path, monkeypatch):
+    torch.set_num_threads(1)
+    monkeypatch.setenv("SOAPDENOVO_TORCH_DEVICE", "cpu")
+    cfg = perf_e2e.synth(str(tmp_path), n_tx=10, n_pairs=400, seed=6)
+    out = str(tmp_path / "pre")
+    tcli.main(["pregraph", "-s", cfg, "-K", str(k), "-o", out])
+    jt, je, ja, jk = jgraph_files.load_pregraph_files(out)
+    tt, te, ta, tk = tgraph_files.load_pregraph_files(out, "cpu")
+    assert tk == jk == k
+
+    def eq(want, got, n, msg):
+        np.testing.assert_array_equal(
+            np.asarray(want)[:n].astype(np.int64), got[:n].numpy(),
+            err_msg=msg)
+
+    assert tt.n == int(jt.n) > 0
+    eq(jt.keys, tt.keys, tt.n, "vertex keys")
+    n_e = te.n_edges
+    assert n_e == int(je.n_edges) > 0
+    for field in ("from_node", "to_node", "length", "cvg", "twin",
+                  "seq_off"):
+        eq(getattr(je, field), getattr(te, field), n_e, field)
+    eq(je.seq_pool, te.seq_pool, int(te.length.sum()), "seq_pool")
+    assert not te.deleted.any()
+    assert ta.n == int(ja.n) > 0
+    for field in ("from_ed", "to_ed", "mult"):
+        eq(getattr(ja, field), getattr(ta, field), ta.n, field)
