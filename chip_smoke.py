@@ -13,29 +13,36 @@ Phases, each of which raises on failure:
    of ``tests/test_merge_path.py`` and two sorted 32M-row runs (one
    counting build unit each); rows and counts must be equal position by
    position; median CUDA-event times of both at 32M + 32M rows;
-4. the port's ``pregraph`` and then ``contig -g`` on a small simulated
-   fixture on ``cpu`` and on ``cuda`` (K = 23 through the kernel, K = 31
-   through the three-lane sort) must write byte-identical stage files;
+4. the port's ``pregraph``, ``contig -g``, ``map -g`` and ``scaff -g``,
+   and then ``all`` on a fresh prefix, on a small simulated fixture on
+   ``cpu`` and on ``cuda`` (K = 23 through the kernel, K = 31 through the
+   three-lane sort) must write identical files, stage by stage and
+   under ``all`` (.scafStatistics with the output prefix replaced, since
+   the report names its own path);
 5. pregraph at real size: ``pregraph -K 23`` on 1,000,000 simulated
    read pairs (2x100 bp, insert 300, 10,000 transcripts of 1,500 bp,
    half with SNP isoforms, 0.2% errors, seed 0) through the CLI entry
    point, with the kernel's launch count reset just before; the table
    must count every valid K-window, the .kmerFreq histogram must sum to
    the distinct k-mers, and edges and preArcs must exist;
-6. the contig slice: ``pregraph`` and then the contig stage in memory
-   (``run_contig_cmd`` with the pregraph result, as ``all`` runs it) on
-   600,000 pairs of the same simulation (6,000 transcripts, seed 0),
-   with the launch count reset before the pregraph and the peak-memory
-   statistics before the contig stage.  The contig stage at 1,000,000
-   pairs takes about 950 s on an H100 (31,426 Tour-Bus waves of
-   30 ms), more than this script's time allows; 600,000 pairs keep the
-   whole script near half of it.  Checks: the .contig
-   headers and sequence lengths agree with .ContigIndex; .updated.edge
-   declares as many edges as there are ids; the sequences are ACGT
-   only; every K-window of every contig made of one pregraph edge is a
-   k-mer of the pregraph table (looked up on the card).
+6. the main path: ``all -K 23`` through ``cli.main`` on 600,000 pairs
+   of the same simulation (6,000 transcripts, seed 0), with the launch
+   count reset just before (``all`` resets the peak-memory statistics
+   before each stage).  The contig stage at 1,000,000 pairs takes about
+   950 s on an H100 (31,426 Tour-Bus waves of 30 ms), more than this
+   script's time allows.  Checks: the .contig headers and sequence
+   lengths agree with .ContigIndex; .updated.edge declares as many
+   edges as there are ids; the sequences are ACGT only; every K-window
+   of every contig made of one pregraph edge is a k-mer of the pregraph
+   table (looked up on the card); the read ids of .readOnContig and
+   .ctg2Read ascend within [1, reads] and their contig ids lie within
+   [1, contigs], with at least half of the reads mapped; every ``C<row>``
+   singleton of .scafSeq is contig ``row`` of .contig; every N-free
+   K-window of every scaffold is a K-window of some contig (both
+   strands; the contig k-mers are sorted and looked up on the card);
+   the .scafStatistics totals agree with .scafSeq.
 
-The line before the last two is a JSON object of the contig stage's
+The line before the last two is a JSON object of the main path's
 numbers; the second-to-last describes the kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing
 of the JAX package (``soapdenovo_trans_tpu``); the reads come from
@@ -65,6 +72,12 @@ UNIT_ROWS = 32_000_000
 STAGE_FILES = (".kmerFreq", ".vertex", ".preArc", ".preGraphBasic",
                ".peGrads", ".edge.gz")
 CONTIG_FILES = (".contig", ".ContigIndex", ".updated.edge", ".Arc")
+MAP_FILES = (".readOnContig", ".ctg2Read")  # and .peGrads, rewritten
+SCAFF_FILES = (".links", ".scaf", ".scaf_gap", ".contigPosInscaff", ".agp",
+               ".scafSeq", ".gapSeq")
+ALL_FILES = STAGE_FILES + CONTIG_FILES + MAP_FILES + SCAFF_FILES
+DEVICES = ("cpu", "cuda")
+WINDOW_BUDGET = 1 << 24  # K-windows chopped on the card at a time
 
 
 def log(msg: str) -> None:
@@ -152,14 +165,14 @@ def phase_kernel(merge_path, dev) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+def run_stage(cli, argv, device: str):
+    os.environ["SOAPDENOVO_TORCH_DEVICE"] = device
+    return cli.main(argv)
+
+
 def run_cli(cli, cfg: str, out: str, k: int, device: str):
-    os.environ["SOAPDENOVO_TORCH_DEVICE"] = device
-    return cli.main(["pregraph", "-s", cfg, "-K", str(k), "-o", out])
-
-
-def run_contig_files(cli, out: str, device: str):
-    os.environ["SOAPDENOVO_TORCH_DEVICE"] = device
-    return cli.main(["contig", "-g", out])
+    return run_stage(cli, ["pregraph", "-s", cfg, "-K", str(k), "-o", out],
+                     device)
 
 
 def read_stage_file(path: str) -> bytes:
@@ -168,24 +181,42 @@ def read_stage_file(path: str) -> bytes:
         return fh.read()
 
 
+def assert_same_files(a: str, b: str, exts, what: str) -> None:
+    """Files of prefixes a and b are equal; .scafStatistics, which names
+    its own path, after each prefix is replaced."""
+    for ext in exts:
+        if read_stage_file(a + ext) != read_stage_file(b + ext):
+            raise AssertionError(f"{what}: {ext} differs")
+    stats = [read_stage_file(p + ".scafStatistics").replace(
+        p.encode() + b".", b"P.") for p in (a, b)]
+    if stats[0] != stats[1]:
+        raise AssertionError(f"{what}: .scafStatistics differs")
+
+
 def phase_cpu_gpu(cli, pg_stage, perf_e2e, tmp: str) -> None:
     cfg = perf_e2e.synth(tmp, n_tx=40, n_pairs=3000, seed=1)
     default_rows = pg_stage.TARGET_BUILD_ROWS
     pg_stage.TARGET_BUILD_ROWS = 1  # 4096-read units: several merges
     try:
         for k in (K, 31):
-            outs = {}
-            for device in ("cpu", "cuda"):
-                outs[device] = os.path.join(tmp, f"small_k{k}_{device}")
-                run_cli(cli, cfg, outs[device], k, device)
-            for device in ("cpu", "cuda"):
-                run_contig_files(cli, outs[device], device)
-            for ext in STAGE_FILES + CONTIG_FILES:
-                if read_stage_file(outs["cpu"] + ext) != \
-                        read_stage_file(outs["cuda"] + ext):
-                    raise AssertionError(f"K={k}: cpu and cuda {ext} differ")
-            log(f"[parity] K={k}: cpu and cuda pregraph and contig files "
-                f"identical")
+            staged = {d: os.path.join(tmp, f"small_k{k}_{d}") for d in DEVICES}
+            whole = {d: os.path.join(tmp, f"all_k{k}_{d}") for d in DEVICES}
+            for d in DEVICES:
+                run_cli(cli, cfg, staged[d], k, d)
+            for argv in (["contig", "-g"], ["map", "-s", cfg, "-g"],
+                         ["scaff", "-g"]):
+                for d in DEVICES:
+                    run_stage(cli, argv + [staged[d]], d)
+            for d in DEVICES:
+                run_stage(cli, ["all", "-s", cfg, "-K", str(k), "-o",
+                                whole[d]], d)
+            assert_same_files(staged["cpu"], staged["cuda"],
+                              ALL_FILES + (".newContigIndex",),
+                              f"K={k}, stage by stage, cpu vs cuda")
+            assert_same_files(whole["cpu"], whole["cuda"], ALL_FILES,
+                              f"K={k}, all, cpu vs cuda")
+            log(f"[parity] K={k}: cpu and cuda files of pregraph, contig, "
+                f"map and scaff identical, stage by stage and under all")
     finally:
         pg_stage.TARGET_BUILD_ROWS = default_rows
 
@@ -284,25 +315,47 @@ def check_contig_files(out: str, n_contigs: int):
     return recs
 
 
-def table_windows(kmer, dictionary, table, seqs, k: int, dev):
-    """(windows, windows found in the table) over the K-windows of seqs,
-    chopped and looked up on the card in chunks."""
+def window_kmers(kmer, seqs, k: int, dev):
+    """Canonical k-mers of the N-free K-windows of seqs, chopped on the
+    card in chunks of about WINDOW_BUDGET windows; yields one (M, W)
+    tensor a chunk."""
     from soapdenovo_trans_tpu_torch.ops import bits
 
-    total = found = 0
-    seqs = sorted(seqs, key=len)
-    for lo in range(0, len(seqs), 4096):
-        chunk = seqs[lo:lo + 4096]
-        width = len(chunk[-1])
-        codes = np.full((len(chunk), width), 4, np.uint8)
+    seqs = sorted((s for s in seqs if len(s) >= k), key=len)
+    lo = 0
+    while lo < len(seqs):
+        hi = lo + 1
+        while hi < len(seqs) and (hi + 1 - lo) * len(seqs[hi]) <= \
+                WINDOW_BUDGET:
+            hi += 1
+        chunk = seqs[lo:hi]
+        codes = np.full((len(chunk), len(chunk[-1])), 4, np.uint8)
         for i, s in enumerate(chunk):
             codes[i, :len(s)] = bits.encode_seq(s)
         lens = torch.tensor([len(s) for s in chunk], device=dev)
         stream = kmer.chop_reads(torch.from_numpy(codes).to(dev), lens, k)
-        rows = dictionary.lookup(table.keys, stream.kmers[stream.valid])
-        total += int(stream.valid.sum())
-        found += int((rows >= 0).sum())
+        yield stream.kmers[stream.valid]
+        lo = hi
+
+
+def table_windows(kmer, dictionary, keys, seqs, k: int, dev):
+    """(windows, windows found among the sorted k-mer rows ``keys``) over
+    the N-free K-windows of seqs, looked up on the card."""
+    total = found = 0
+    for kmers in window_kmers(kmer, seqs, k, dev):
+        total += kmers.shape[0]
+        found += int((dictionary.lookup(keys, kmers) >= 0).sum())
     return total, found
+
+
+def distinct_kmers(kmer, dictionary, seqs, k: int, dev):
+    """The sorted distinct canonical k-mers of seqs' K-windows, as rows
+    for ``dictionary.lookup``."""
+    (keys,) = dictionary.sort_rows(torch.cat(list(
+        window_kmers(kmer, seqs, k, dev))))
+    keep = torch.ones(keys.shape[0], dtype=torch.bool, device=dev)
+    keep[1:] = (keys[1:] != keys[:-1]).any(-1)
+    return keys[keep]
 
 
 def n50(lengths) -> int:
@@ -314,33 +367,90 @@ def n50(lengths) -> int:
     return 0
 
 
-def phase_contig(cli, merge_path, perf_e2e, smi: str, tmp: str):
+def read_fasta(path: str):
+    """[(header, sequence)] of a FASTA file."""
+    recs = []
+    with open(path) as fh:
+        for line in fh:
+            line = line.rstrip("\n")
+            if line.startswith(">"):
+                recs.append((line[1:], []))
+            elif line:
+                recs[-1][1].append(line)
+    return [(h, "".join(parts)) for h, parts in recs]
+
+
+def check_placements(pelinks, out: str, n_reads: int, n_contigs: int):
+    """Check 5 of phase 6; returns the reads of .readOnContig (one row a
+    mapped read) and the rows of .ctg2Read."""
+    rows = {}
+    for ext in (".readOnContig", ".ctg2Read"):
+        read, ctg, _pos = pelinks._load_rows(out + ext)
+        if not read.size:
+            raise AssertionError(f"{ext} is empty")
+        step = np.diff(read)
+        if (step <= 0 if ext == ".readOnContig" else step < 0).any():
+            raise AssertionError(f"{ext}: read ids do not ascend")
+        if read[0] < 1 or read[-1] > n_reads:
+            raise AssertionError(f"{ext}: read ids {read[0]}..{read[-1]} "
+                                 f"outside [1, {n_reads}]")
+        if ctg.min() < 1 or ctg.max() > n_contigs:
+            raise AssertionError(f"{ext}: contig ids {ctg.min()}.."
+                                 f"{ctg.max()} outside [1, {n_contigs}]")
+        rows[ext] = read.size
+    if 2 * rows[".readOnContig"] < n_reads:
+        raise AssertionError(f"only {rows['.readOnContig']} of {n_reads} "
+                             f"reads mapped")
+    return rows[".readOnContig"], rows[".ctg2Read"]
+
+
+def check_scaffolds(out: str, contig_recs):
+    """Checks 6 and 8 of phase 6; returns the .scafSeq records."""
+    scaf = read_fasta(out + ".scafSeq")
+    by_id = {cid: seq for cid, _, seq in contig_recs}
+    for head, seq in scaf:
+        if head.startswith("C") and by_id.get(int(head[1:]) + 1) != seq:
+            raise AssertionError(f"singleton {head} is not contig "
+                                 f"{int(head[1:]) + 1} of .contig")
+    kept = [s for _, s in scaf if len(s) >= 100]
+    want = {"Size_includeN": sum(map(len, kept)),
+            "Size_withoutN": sum(len(s) - s.count("N") for s in kept),
+            "Scaffold_Num": len(kept),
+            "Singleton_Num": sum(1 for h, s in scaf
+                                 if h.startswith("C") and len(s) >= 100)}
+    got = {}
+    with open(out + ".scafStatistics") as fh:
+        for line in fh:
+            f = line.split("\t")
+            if f[0] in want and f[0] not in got:  # the scaffold section
+                got[f[0]] = int(f[1])
+    if got != want:
+        raise AssertionError(f".scafStatistics says {got}, .scafSeq holds "
+                             f"{want}")
+    return scaf
+
+
+def phase_all(cli, merge_path, perf_e2e, smi: str, tmp: str):
     from soapdenovo_trans_tpu_torch.graph import contig_merge
     from soapdenovo_trans_tpu_torch.ops import dictionary, kmer
+    from soapdenovo_trans_tpu_torch.stages import pelinks
 
     t0 = time.time()
     cfg = perf_e2e.synth(tmp, n_tx=CONTIG_TX, n_pairs=CONTIG_PAIRS, seed=0)
-    log(f"[contig] simulated {CONTIG_PAIRS} pairs in "
-        f"{time.time() - t0:.1f}s")
-    out = os.path.join(tmp, "contig")
+    log(f"[all] simulated {CONTIG_PAIRS} pairs in {time.time() - t0:.1f}s")
+    out = os.path.join(tmp, "all")
     dev = torch.device("cuda")
     merge_path.LAUNCHES = 0
     t0 = time.time()
-    res = run_cli(cli, cfg, out, K, "cuda")
-    torch.cuda.synchronize()
-    pregraph_s = time.time() - t0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    args = cli.build_parser().parse_args(["contig", "-g", out])
-    result, table, k = cli.run_contig_cmd(args, dev, res)
-    torch.cuda.synchronize()
-    contig_s = time.time() - t0
+    res = run_stage(cli, ["all", "-s", cfg, "-K", str(K), "-o", out], "cuda")
+    all_s = time.time() - t0
     launches = merge_path.LAUNCHES
-    peak = torch.cuda.max_memory_allocated()
     if launches < 1:
-        raise AssertionError("the contig slice never launched the merge "
+        raise AssertionError("the main path never launched the merge "
                              "kernel")
 
+    # the contig stage
+    result, table, k = res.contig, res.pregraph.table, K
     ctg = result.contigs
     recs = check_contig_files(out, ctg.n)
     seqs = contig_merge.contig_sequences(ctg, table, k)
@@ -348,33 +458,73 @@ def phase_contig(cli, merge_path, perf_e2e, smi: str, tmp: str):
                              minlength=ctg.n)
     single = [seqs[i] for i in
               torch.nonzero(members == 1)[:, 0].tolist()]
-    n_single, hit_single = table_windows(kmer, dictionary, table, single,
-                                         k, dev)
+    n_single, hit_single = table_windows(kmer, dictionary, table.keys,
+                                         single, k, dev)
     if n_single == 0 or hit_single != n_single:
         raise AssertionError(f"{n_single - hit_single} of {n_single} "
                              f"K-windows of single-edge contigs are not "
                              f"pregraph k-mers")
-    n_all, hit_all = table_windows(kmer, dictionary, table, seqs, k, dev)
+    n_all, hit_all = table_windows(kmer, dictionary, table.keys, seqs, k,
+                                   dev)
     lengths = [n for _, n, _ in recs]
     tb = result.tourbus
-    log(f"[contig] {ctg.n} contigs ({len(recs)} in .contig), "
-        f"{len(single)} of one pregraph edge: all their {n_single} "
-        f"K-windows are table k-mers; {hit_all} of {n_all} K-windows of "
-        f"all contigs are")
+    log(f"[all] {ctg.n} contigs ({len(recs)} in .contig), {len(single)} of "
+        f"one pregraph edge: all their {n_single} K-windows are table "
+        f"k-mers; {hit_all} of {n_all} K-windows of all contigs are")
+
+    # the map stage
+    n_reads = 2 * CONTIG_PAIRS
+    mapped, ctg2read = check_placements(pelinks, out, n_reads, ctg.n)
+    if mapped != res.map.mapped or ctg2read != res.map.groups:
+        raise AssertionError("the map stage's counts and files disagree")
+    log(f"[all] map: {mapped} of {n_reads} reads mapped "
+        f"({100.0 * mapped / n_reads:.2f}%), {ctg2read} .ctg2Read rows")
+
+    # the scaff stage
+    scaf = check_scaffolds(out, recs)
+    scaffolds = [s for h, s in scaf if h.startswith("scaffold")]
+    rc = str.maketrans("ACGT", "TGCA")
+    twin = ctg.twin.tolist()
+    asym = sum(1 for i in range(ctg.n) if twin[i] > i
+               and seqs[twin[i]] != seqs[i].translate(rc)[::-1])
+    n_win, hit_win = table_windows(
+        kmer, dictionary, distinct_kmers(kmer, dictionary, seqs, k, dev),
+        scaffolds, k, dev)
+    if n_win == 0 or hit_win != n_win:
+        raise AssertionError(f"{n_win - hit_win} of {n_win} N-free "
+                             f"K-windows of scaffolds are no contig k-mer")
+    log(f"[all] scaff: {len(scaffolds)} transcripts, "
+        f"{len(scaf) - len(scaffolds)} singletons; all {n_win} N-free "
+        f"K-windows of the transcripts are contig k-mers; {asym} twin "
+        f"pairs whose sequences are not reverse complements")
+
+    sres = res.scaff
     numbers = {
-        "card": smi, "pairs": CONTIG_PAIRS, "edges": res.edges.n_edges,
-        "pre_arcs": res.arcs.n, "pregraph_s": pregraph_s,
-        "contig_s": contig_s, "phase_s": result.phase_seconds,
-        "laps": result.laps, "waves": tb["waves"],
-        "productive_waves": tb["productive"], "merged": tb["merged"],
-        "s_per_wave": tb["s_per_wave"],
+        "card": smi, "pairs": CONTIG_PAIRS, "all_s": all_s,
+        "stage_s": res.stage_seconds, "peak_bytes": res.peak_bytes,
+        "edges": res.pregraph.edges.n_edges, "pre_arcs": res.pregraph.arcs.n,
+        "contig_phase_s": result.phase_seconds, "laps": result.laps,
+        "waves": tb["waves"], "productive_waves": tb["productive"],
+        "merged": tb["merged"], "s_per_wave": tb["s_per_wave"],
         "contigs": len(recs), "total_len": sum(lengths),
         "n50": n50(lengths), "table_window_share": hit_all / max(n_all, 1),
-        "peak_bytes": peak, "merge_launches": launches}
-    log(f"[contig] stage {contig_s:.1f}s, {tb['waves']} waves "
-        f"({tb['productive']} productive, {tb['merged']} bubbles merged, "
-        f"{numbers['s_per_wave'] * 1e3:.2f} ms a wave), peak "
-        f"{peak / 1e9:.2f} GB on {smi}")
+        "asymmetric_twins": asym,
+        "map": {"reads": res.map.reads, "mapped": mapped,
+                "mapped_share": mapped / n_reads, "ctg2read_rows": ctg2read,
+                "index_kmers": res.map.index_kmers,
+                "phase_s": res.map.phase_seconds},
+        "scaff": {"connections": sres.connections,
+                  "transcripts": len(scaffolds),
+                  "singletons": len(scaf) - len(scaffolds),
+                  "n50": sres.stats.get("N50", 0),
+                  "transcript_n50": n50([len(s) for s in scaffolds]),
+                  "phase_s": sres.phase_seconds},
+        "merge_launches": launches}
+    peaks = ", ".join(f"{s} {b / 1e9:.2f}" for s, b in res.peak_bytes.items())
+    log(f"[all] {all_s:.1f}s: " + ", ".join(
+        f"{s} {t:.1f}s" for s, t in res.stage_seconds.items()) +
+        f"; peak GB {peaks}; {tb['waves']} Tour-Bus waves of "
+        f"{tb['s_per_wave'] * 1e3:.2f} ms on {smi}")
     return launches, numbers
 
 
@@ -401,14 +551,14 @@ def main() -> int:
         phase_cpu_gpu(cli, pg_stage, perf_e2e, tmp)
         phase_slice(cli, merge_path, perf_e2e, tmp)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, numbers = phase_contig(cli, merge_path, perf_e2e,
-                                         smi.splitlines()[0], tmp)
+        launches, numbers = phase_all(cli, merge_path, perf_e2e,
+                                      smi.splitlines()[0], tmp)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "soapdenovo_trans_tpu"))
     if foreign:
         raise AssertionError(f"the port loaded JAX modules: {foreign[:5]}")
 
-    log("[contig] " + json.dumps(numbers))
+    log("[all] " + json.dumps(numbers))
     log(json.dumps({"kernels": [{
         "name": "merge_path", "route": "cuda",
         "source": "soapdenovo_trans_tpu_torch/csrc/merge_path.cu",

@@ -1,46 +1,56 @@
 """Command-line interface of the PyTorch port.
 
-``pregraph`` and ``contig`` take the same flags, with the same defaults,
-as ``python -m soapdenovo_trans_tpu pregraph`` / ``contig`` (reference
-pregraph.c:118-185, contig.c:311).  The other stages (``map``,
-``scaff``, ``all``), ``pregraph -R`` and ``contig -R`` are not ported yet
-and exit with a message.  The parser is this module's own: the port
-loads no module of the JAX package.
+The five subcommands take the same flags, with the same defaults, as
+``python -m soapdenovo_trans_tpu`` (reference main.c:49-106,
+pregraph.c:118-185, contig.c:311, map.c:115, scaffold.c:108).  Not
+ported yet, and refused with a message: ``pregraph -R``, ``contig -R``,
+``map -f/-r/-R``, ``scaff -F/-S/-r/-R`` and the same flags on ``all``.
+The parser is this module's own: the port loads no module of the JAX
+package.
 
 The device comes from ``SOAPDENOVO_TORCH_DEVICE`` (default ``cuda``);
 a missing device is an error, never a silent fallback to the CPU.
 
 Usage:
+    python -m soapdenovo_trans_tpu_torch all -s reads.config -K 23 -o out
     python -m soapdenovo_trans_tpu_torch pregraph -s reads.config -K 23 -o out
     python -m soapdenovo_trans_tpu_torch contig -g out
+    python -m soapdenovo_trans_tpu_torch map -s reads.config -g out
+    python -m soapdenovo_trans_tpu_torch scaff -g out
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 READ_BATCH = 131072  # reads per IO batch
-NOT_PORTED = ("map", "scaff", "all")
+MAP_BATCH = 131072   # reads per map batch (even: mates share a batch)
+
+
+def _add_common(p) -> None:
+    p.add_argument("-s", dest="config", required=True,
+                   help="lib config file")
+    p.add_argument("-o", "-g", dest="out", required=True,
+                   help="output graph prefix")
+    p.add_argument("-K", dest="k", type=int, default=23,
+                   help="kmer size (odd, 13..127)")
+    p.add_argument("-p", dest="ncpu", type=int, default=8,
+                   help="accepted for compatibility")
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="soapdenovo-trans-tpu-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     pg = sub.add_parser("pregraph", help="reads -> kmer/edge graph")
-    pg.add_argument("-s", dest="config", required=True,
-                    help="lib config file")
-    pg.add_argument("-o", "-g", dest="out", required=True,
-                    help="output graph prefix")
-    pg.add_argument("-K", dest="k", type=int, default=23,
-                    help="kmer size (odd, 13..127)")
-    pg.add_argument("-p", dest="ncpu", type=int, default=8,
-                    help="accepted for compatibility")
+    _add_common(pg)
     pg.add_argument("-d", dest="low_kmer", type=int, default=0,
                     help="delete kmers with frequency <= this")
     pg.add_argument("-i", dest="minor_pct", type=int, default=5,
@@ -70,7 +80,92 @@ def build_parser() -> argparse.ArgumentParser:
     cg.add_argument("-S", dest="short_cutoff", type=int, default=48,
                     help="remove short-contig components below this "
                          "length (reference cut_length, contig.c:333)")
+
+    mp = sub.add_parser("map", help="reads -> contig placements")
+    _add_common(mp)
+    mp.add_argument("-f", dest="gap_reads", action="store_true",
+                    help="output gap related reads (not ported yet)")
+    mp.add_argument("-r", dest="read_trace", action="store_true",
+                    help="write .readInformation (not ported yet)")
+    mp.add_argument("-R", dest="rpkm", action="store_true",
+                    help="write .readInformation (not ported yet)")
+
+    sc = sub.add_parser("scaff", help="links -> transcripts")
+    sc.add_argument("-g", dest="out", required=True)
+    sc.add_argument("-s", dest="config", default=None,
+                    help="lib config (read only by -F)")
+    sc.add_argument("-L", dest="min_contig", type=int, default=100)
+    sc.add_argument("-t", dest="max_transcripts", type=int, default=5)
+    sc.add_argument("-G", dest="gap_len_diff", type=int, default=50,
+                    help="allowed gap-size error for gap filling (-F)")
+    sc.add_argument("-F", dest="fill_gaps", action="store_true",
+                    help="fill gaps (not ported yet)")
+    sc.add_argument("-S", dest="skip_scaffold", action="store_true",
+                    help="resume from .scaf_gap (not ported yet)")
+    sc.add_argument("-r", dest="read_trace", action="store_true",
+                    help="write .readOnScaf (not ported yet)")
+    sc.add_argument("-R", dest="rpkm", action="store_true",
+                    help="write .readOnScaf and .RPKM.Stat "
+                         "(not ported yet)")
+    sc.add_argument("-N", dest="genome_size", type=int, default=0,
+                    help="known genome/transcriptome size for NG50 in "
+                         ".scafStatistics (reference scaffold.c:124)")
+    sc.add_argument("-u", dest="no_mask_rep", action="store_true",
+                    help="accepted for compatibility (no effect on the "
+                         "transcript flow, as in the reference)")
+    sc.add_argument("-c", dest="max_cnt", type=int, default=0,
+                    help="keep at most this many outgoing links per "
+                         "non-unique contig (deleteUnlikelyCnt, "
+                         "transcriptome.c:2202; 0 or >10 = off)")
+
+    al = sub.add_parser("all", help="full pipeline")
+    _add_common(al)
+    al.add_argument("-d", dest="low_kmer", type=int, default=0)
+    al.add_argument("-i", dest="minor_pct", type=int, default=5)
+    al.add_argument("-e", dest="edge_cov", type=int, default=2)
+    al.add_argument("-M", dest="merge_level", type=int, default=1)
+    al.add_argument("-q", dest="light_out", type=int, default=5)
+    al.add_argument("-Q", dest="light_flow", type=int, default=2)
+    al.add_argument("-H", dest="high_arc", type=int, default=200)
+    al.add_argument("-L", dest="min_contig", type=int, default=100,
+                    help="minimum contig length for scaffolding")
+    al.add_argument("-G", dest="gap_len_diff", type=int, default=50)
+    al.add_argument("-F", dest="fill_gaps", action="store_true")
+    al.add_argument("-f", dest="gap_reads", action="store_true")
+    al.add_argument("-S", dest="skip_scaffold", action="store_true")
+    al.add_argument("-t", dest="max_transcripts", type=int, default=5)
+    al.add_argument("-r", dest="read_trace", action="store_true")
+    al.add_argument("-R", dest="rpkm", action="store_true")
+    al.add_argument("-a", dest="init_mem", type=int, default=0,
+                    help="accepted for compatibility (see pregraph -a)")
+    al.add_argument("-n", dest="n_kmer", action="store_true")
+    al.add_argument("-c", dest="max_cnt", type=int, default=0)
+    al.add_argument("-u", dest="no_mask_rep", action="store_true")
+    al.add_argument("-D", dest="low_edge_cov", type=int, default=0,
+                    help="accepted for compatibility: the reference "
+                         "never forwards it to a stage (main.c:313-323)")
+    al.add_argument("-k", dest="kmer_small", type=int, default=0,
+                    help="accepted for compatibility: ignored by the "
+                         "reference's map stage too (map.c:115)")
+    # the stages' own flags that `all` does not take (its -R and -S
+    # mean rpkm and skip_scaffold)
+    al.set_defaults(reps_tie=False, short_cutoff=48, genome_size=0)
     return ap
+
+
+_REFUSED = {"pregraph": ("reps_tie",), "contig": ("reps_tie",),
+            "map": ("gap_reads", "read_trace", "rpkm"),
+            "scaff": ("fill_gaps", "skip_scaffold", "read_trace", "rpkm"),
+            "all": ("gap_reads", "fill_gaps", "skip_scaffold",
+                    "read_trace", "rpkm")}
+_FLAG = {"reps_tie": "-R", "gap_reads": "-f", "read_trace": "-r", "rpkm": "-R",
+         "fill_gaps": "-F", "skip_scaffold": "-S"}
+
+
+def _refuse_unported(args) -> None:
+    for dest in _REFUSED.get(args.cmd, ()):
+        if getattr(args, dest):
+            sys.exit(f"{args.cmd} {_FLAG[dest]} is not ported yet")
 
 
 def device_from_env() -> torch.device:
@@ -154,8 +249,6 @@ def run_pregraph_cmd(args, device: torch.device):
     from .io import graph_files, libconfig, stagefiles
     from .stages import pregraph as pg_stage
 
-    if args.reps_tie:
-        sys.exit("pregraph -R is not ported yet")
     cfg = libconfig.parse_config(args.config)
     if args.k % 2 == 0 or not (13 <= args.k <= 127):
         sys.exit("K must be odd and within 13..127")
@@ -190,14 +283,10 @@ def run_contig_cmd(args, device: torch.device, res=None):
     in memory from a ``PregraphResult``, as ``all`` runs it.  Writes
     .contig/.ContigIndex/.updated.edge/.Arc; returns (ContigResult with
     the contigs, and its edge map, in file order; table; k)."""
-    import dataclasses
-
     from .graph import contig_merge
     from .io import graph_files, stagefiles
     from .stages import contig as contig_stage
 
-    if args.reps_tie:
-        sys.exit("contig -R is not ported yet")
     if res is None:
         # resume from the reference-format stage files
         # (loadVertex/loadEdge/loadPreArcs, src/loadPreGraph.c:52-670)
@@ -234,20 +323,227 @@ def run_contig_cmd(args, device: torch.device, res=None):
                                edge_contig=edge_contig), table, k
 
 
+@dataclasses.dataclass
+class MapResult:
+    """What the map stage counted, and its host seconds."""
+
+    reads: int          # reads numbered (length > 0)
+    mapped: int         # reads with a .readOnContig row
+    groups: int         # qualifying (read, contig) groups: .ctg2Read rows
+    index_kmers: int    # unique contig k-mers in the index
+    phase_seconds: Dict[str, float]  # index, reads (vote: device part)
+
+
+def run_map_cmd(args, device: torch.device, ctg=None, table=None):
+    """The map stage, from the contig stage files (``ctg`` None) or in
+    memory, as ``all`` runs it; writes .peGrads/.readOnContig/.ctg2Read
+    (JAX ``cli.run_map_cmd``, reference prlRead2Ctg.c:656-1086)."""
+    from .graph import connections
+    from .io import fastx, graph_files, libconfig, stagefiles
+    from .stages import map as map_stage
+
+    cfg = libconfig.parse_config(args.config)
+    if ctg is None:
+        ctg, table, k = graph_files.load_contig_graph_files(
+            args.out, device)
+        print(f"[map] loaded {ctg.n} contigs from "
+              f"{args.out}.updated.edge/.Arc/.contig")
+    else:
+        k = args.k
+    t0 = time.time()
+    index = map_stage.build_contig_index(ctg, table, k)
+    full_len = ctg.length + k
+    t1 = time.time()
+
+    group_rows = []  # per batch: (read, ctg, ctg_off, read_off, same)
+    base = 0  # global REAL-read counter: padded rows (length 0) are not
+    #           numbered, matching the reference's dense readno space
+    #           (readCounter, prlRead2Ctg.c:539)
+    lib_reads: Dict[int, int] = {}  # lib index -> reads (for .peGrads)
+    max_read_len = 0
+    vote_s = 0.0
+    for codes, lengths, li in fastx.config_read_batches(
+            cfg, MAP_BATCH, purpose=2):
+        lib = cfg.libs[li]
+        real = lengths > 0
+        n_real = int(real.sum())
+        lib_reads[li] = lib_reads.get(li, 0) + n_real
+        if not n_real:
+            continue
+        # a library's last batch is padded with length-0 reads: drop
+        # them, keeping an even row count so mates stay paired
+        rows = int(np.flatnonzero(real)[-1]) + 1
+        rows += rows & 1
+        codes, lengths, real = codes[:rows], lengths[:rows], real[:rows]
+        row_no = base + np.cumsum(real) - 1  # row -> 0-based read index
+        max_read_len = max(max_read_len, int(lengths.max()))
+        tv = time.time()
+        pl = map_stage.map_reads(
+            torch.from_numpy(codes).to(device),
+            torch.from_numpy(lengths).to(device), index, k,
+            map_len=lib.map_len or 32)
+        q = pl.g_valid
+        g = torch.stack([pl.g_read[q], pl.g_ctg[q], pl.g_ctg_off[q],
+                         pl.g_read_off[q], pl.g_same[q].to(torch.int64)]
+                        ).cpu().numpy()
+        vote_s += time.time() - tv
+        if lib.has_pairs and lib.avg_ins > 0:
+            ins, n_obs = connections.estimate_insert_size(
+                pl.ctg, pl.pos, ctg.twin, full_len, lib.avg_ins)
+            if ins != lib.avg_ins:
+                print(f"[map] lib {li}: insert size estimate "
+                      f"{lib.avg_ins} -> {ins} ({n_obs} pairs)")
+        # qualifying alignment groups in read-encounter order
+        # (recordAlldgn, reference prlRead2Ctg.c:530-614)
+        if g.shape[1]:
+            g[0] = row_no[g[0]]
+            group_rows.append(g[:, np.lexsort((g[3], g[0]))])
+        base += n_real
+    t2 = time.time()
+
+    # .peGrads from the map pass's own library accounting, like the
+    # reference's map-side writer (prlRead2Ctg.c:827-840): per-grad
+    # cumulative read-number bounds; equal insert sizes merge; the raw
+    # pair_num_cut, 0 when unset (prlRead2Ctg.c:842)
+    grads = []
+    bound = 0
+    for li in sorted(lib_reads):
+        lib = cfg.libs[li]
+        bound += lib_reads[li]
+        if not lib.has_pairs or lib.avg_ins <= 0:
+            continue
+        if grads and grads[-1][0] == lib.avg_ins:
+            grads[-1] = (lib.avg_ins, bound, 0, lib.pair_num_cut)
+        else:
+            grads.append((lib.avg_ins, bound, 0, lib.pair_num_cut))
+    stagefiles.write_pe_grads(
+        args.out + ".peGrads", grads, base, max_read_len)
+    g_read, g_ctg, g_off, g_roff, g_same = (
+        np.concatenate(group_rows, 1) if group_rows
+        else np.zeros((5, 0), np.int64))
+    # .readOnContig: one line per mapped read; odd readnos report the
+    # LAST alignment group, even the FIRST (recordAlldgn,
+    # prlRead2Ctg.c:565-568); pos = contigOffset - readOffset + 1
+    new_read = g_read[1:] != g_read[:-1]
+    first_of = np.concatenate([[True], new_read])[:g_read.size]
+    last_of = np.concatenate([new_read, [True]])[:g_read.size]
+    sel = np.flatnonzero(np.where((g_read + 1) % 2 == 1, last_of, first_of))
+    orien_col = np.where(g_same == 1, "+", "-")
+    stagefiles.write_placement_table(
+        args.out + ".readOnContig", g_read[sel] + 1, g_ctg[sel] + 1,
+        g_off[sel] - g_roff[sel] + 1, orien_col[sel])
+    stagefiles.write_placement_table(
+        args.out + ".ctg2Read", g_read + 1, g_ctg + 1, g_roff - g_off,
+        orien_col)
+    print(f"[map] wrote {args.out}.readOnContig/.ctg2Read/.peGrads")
+    return MapResult(base, int(sel.size), int(g_read.size), index.n, {
+        "index": t1 - t0, "reads": t2 - t1, "vote": vote_s,
+        "write": time.time() - t2})
+
+
+def run_scaff_cmd(args, device: torch.device, ctg=None, table=None):
+    """The scaff stage, from the contig stage files (``ctg`` None) or in
+    memory, as ``all`` runs it.  Connections are always rebuilt from the
+    map stage's files (.peGrads/.readOnContig/.ctg2Read), like the
+    reference's PE2Links/Links2Scaf/singleRead2connection.  Writes
+    .links/.scafSeq/.gapSeq/.scaf/.scaf_gap/.contigPosInscaff/.agp/
+    .scafStatistics; returns the ScaffResult, with the seconds of the
+    link build and the writers added to its phase_seconds."""
+    from .io import fastx, graph_files, stagefiles
+    from .stages import pelinks
+    from .stages import scaff as scaff_stage
+
+    if ctg is None:
+        ctg, table, k = graph_files.load_contig_graph_files(
+            args.out, device)
+        print(f"[scaff] loaded {ctg.n} contigs from "
+              f"{args.out}.updated.edge/.Arc/.contig")
+    else:
+        k = args.k
+    t0 = time.time()
+    conn, ins_size_var = pelinks.build_connections(
+        args.out, ctg, k, min_unique_len=args.min_contig)
+    print(f"[scaff] {conn.n} contig connections from "
+          f"{args.out}.readOnContig/.ctg2Read")
+    params = scaff_stage.ScaffParams(
+        min_unique_len=args.min_contig,
+        max_transcripts=args.max_transcripts, max_cnt=args.max_cnt,
+        ins_size_var=ins_size_var)
+    t1 = time.time()
+    sres = scaff_stage.run_scaff(ctg, conn, k, table, params,
+                                 ctg_arcs=ctg.arcs)
+    t2 = time.time()
+    recs = sres.recs
+    fastx.write_fasta(args.out + ".scafSeq", recs)
+    stagefiles.write_gap_seq(args.out + ".gapSeq", sres.gap_report)
+    stagefiles.write_scaf_files(
+        args.out, sres.transcripts, recs, ctg.length.cpu().numpy(),
+        ctg.twin.cpu().numpy(), k, placements=sres.placements,
+        routes=sres.routes, n_runs=sres.n_runs)
+    stagefiles.write_scaf_statistics(
+        args.out, known_genome_size=args.genome_size)
+    n_scaf = sum(1 for h, _ in recs if h.startswith("scaffold"))
+    print(f"[scaff] {n_scaf} transcripts + {len(recs) - n_scaf} "
+          f"singletons -> {args.out}.scafSeq "
+          f"(N50={sres.stats.get('N50', 0)})")
+    sres.phase_seconds.update(links=t1 - t0, write=time.time() - t2)
+    return sres
+
+
+@dataclasses.dataclass
+class AllResult:
+    """The four stages of ``all``, with each stage's seconds (host
+    clock, device synchronized) and peak device memory (CUDA only)."""
+
+    pregraph: object
+    contig: object
+    map: MapResult
+    scaff: object
+    stage_seconds: Dict[str, float]
+    peak_bytes: Dict[str, Optional[int]]
+
+
+def run_all(args, device: torch.device) -> AllResult:
+    """pregraph -> contig in memory -> map in memory -> scaff (JAX
+    ``cli.main``'s ``all``, cli.py:748-756)."""
+    seconds: Dict[str, float] = {}
+    peak: Dict[str, Optional[int]] = {}
+    cuda = device.type == "cuda"
+
+    def stage(name, fn):
+        if cuda:
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.time()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize(device)
+        seconds[name] = time.time() - t0
+        peak[name] = torch.cuda.max_memory_allocated(device) if cuda \
+            else None
+        return out
+
+    res = stage("pregraph", lambda: run_pregraph_cmd(args, device))
+    contig, table, _k = stage(
+        "contig", lambda: run_contig_cmd(args, device, res))
+    mres = stage("map", lambda: run_map_cmd(
+        args, device, ctg=contig.contigs, table=table))
+    sres = stage("scaff", lambda: run_scaff_cmd(
+        args, device, ctg=contig.contigs, table=table))
+    return AllResult(res, contig, mres, sres, seconds, peak)
+
+
 def main(argv=None):
-    """Parse ``argv`` and run the subcommand; returns its result (a
-    ``PregraphResult``, or ``run_contig_cmd``'s tuple)."""
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in NOT_PORTED:
-        sys.exit(f"{argv[0]} is not ported yet: only pregraph and contig "
-                 f"run on the PyTorch port")
+    """Parse ``argv`` and run the subcommand; returns its result: a
+    ``PregraphResult``, ``run_contig_cmd``'s tuple, a ``MapResult``, a
+    ``ScaffResult`` or, for ``all``, an ``AllResult``."""
     args = build_parser().parse_args(argv)
+    _refuse_unported(args)
     device = device_from_env()
     t0 = time.time()
-    if args.cmd == "pregraph":
-        res = run_pregraph_cmd(args, device)
-    else:
-        res = run_contig_cmd(args, device)
+    run = {"pregraph": run_pregraph_cmd, "contig": run_contig_cmd,
+           "map": run_map_cmd, "scaff": run_scaff_cmd, "all": run_all}
+    res = run[args.cmd](args, device)
     print(f"[done] {args.cmd} on {device} {time.time() - t0:.1f}s")
     return res
 

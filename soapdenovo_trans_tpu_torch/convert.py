@@ -2,11 +2,12 @@
 
 ``to_torch`` turns one of the JAX package's state NamedTuples —
 ``KmerTable``, ``SortedRun``, ``DBG``, ``EdgeGraph``, ``PatchTable``,
-``ArcSet``, ``Contigs`` (with its nested ``ArcSet``), with numpy (or any
-array-like) fields — into the port's NamedTuple of the same name on a
-given device.  ``to_numpy`` turns a
-port NamedTuple back into numpy arrays with the JAX package's dtypes,
-optionally wrapped in a given class (e.g. the JAX package's own).
+``ArcSet``, ``Contigs`` (with its nested ``ArcSet``), ``ContigIndex``,
+``ReadPlacements``, ``ConnSet``, with numpy (or any array-like) fields —
+into the port's NamedTuple of the same name on a given device.
+``to_numpy`` turns a port NamedTuple back into numpy arrays with the JAX
+package's dtypes, optionally wrapped in a given class (e.g. the JAX
+package's own).
 
 Dtype rules: uint32 k-mer/row lanes <-> int64 lanes; int32 counts and
 coverages stay int32; every other int32 array (node, edge and arc ids,
@@ -19,13 +20,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .graph import arcs, contig_merge, dbg, unitigs
+from .graph import arcs, connections, contig_merge, dbg, unitigs
 from .ops import dictionary
+from .stages import map as map_stage
 
 _TYPES = {cls.__name__: cls for cls in (
     dictionary.KmerTable, dictionary.SortedRun, dbg.DBG,
     unitigs.EdgeGraph, arcs.PatchTable, arcs.ArcSet,
-    contig_merge.Contigs)}
+    contig_merge.Contigs, map_stage.ContigIndex, map_stage.ReadPlacements,
+    connections.ConnSet)}
 _LANES = {"keys", "rows"}
 _COUNTS = {("KmerTable", "count"), ("KmerTable", "l_cov"),
            ("KmerTable", "r_cov"), ("SortedRun", "count"),

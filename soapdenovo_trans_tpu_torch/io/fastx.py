@@ -1,11 +1,11 @@
-"""FASTA/FASTQ readers -> padded uint8 read batches.
+"""FASTA/FASTQ readers -> padded uint8 read batches, and the FASTA writer.
 
-A jax-free copy of ``config_read_batches`` and what it calls from
-``soapdenovo_trans_tpu/io/fastx.py``: that module imports the JAX
-package's ``ops/bits`` (and so ``jax``), and the machine that runs the
-port on the GPU has no jax.  ``_CHAR2CODE`` comes from this package's
-``ops/bits``; ``libconfig``, ``bam`` and ``native`` are this package's
-copies, so the port loads no module of the JAX package.
+A jax-free copy of ``config_read_batches`` and what it calls, and of
+``write_fasta``, from ``soapdenovo_trans_tpu/io/fastx.py``: that module
+imports the JAX package's ``ops/bits`` (and so ``jax``), and the machine
+that runs the port on the GPU has no jax.  ``_CHAR2CODE`` comes from this
+package's ``ops/bits``; ``libconfig``, ``bam`` and ``native`` are this
+package's copies, so the port loads no module of the JAX package.
 
 Reads stream in as (B, L) uint8 code batches (A=0,C=1,T=2,G=3,N=4),
 padded to a fixed width; paired files are interleaved read1,read2,...
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import gzip
 import io
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -197,3 +197,11 @@ def _config_read_batches(
             lens[fill:] = 0
             yield buf, lens, li
 
+
+def write_fasta(path: str, records: Sequence[Tuple[str, str]],
+                width: int = 100) -> None:
+    with open(path, "w") as fh:
+        for header, seq in records:
+            fh.write(f">{header}\n")
+            for i in range(0, len(seq), width):
+                fh.write(seq[i: i + width] + "\n")

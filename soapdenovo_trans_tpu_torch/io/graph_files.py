@@ -3,11 +3,12 @@
 scaff boundary).
 
 A jax-free copy of ``write_pregraph_files``, ``edge_file_ids``,
-``load_pregraph_files``, ``write_contig_graph_files`` and the hex
-helpers of ``soapdenovo_trans_tpu/io/graph_files.py``, which imports
-``jax`` at module level; the machine that runs the port on the GPU has
-no jax.  The writers take the port's tensors and read them on the host;
-the loader returns the port's state on a given device.
+``load_pregraph_files``, ``write_contig_graph_files``,
+``load_contig_graph_files`` and the hex helpers of
+``soapdenovo_trans_tpu/io/graph_files.py``, which imports ``jax`` at
+module level; the machine that runs the port on the GPU has no jax.  The
+writers take the port's tensors and read them on the host; the loaders
+return the port's state on a given device.
 
 * .vertex  — branch-kmer hex dump, 8 per line (reference
   output_pregraph.c:47-81, print_kmer kmer.c:499-516); the loader
@@ -254,10 +255,12 @@ def _read_edge_records(prefix: str, k: int):
             np.asarray(cvg, np.int64), np.asarray(bal, np.int64), seqs)
 
 
-def _read_pre_arcs(prefix: str):
+def _read_arcs(path: str):
+    """(from, to, mult) of a .preArc or .Arc file ('from to1 m1 to2 m2
+    ...' lines, 1-based ids), as 0-based int64 arrays."""
     fr, to, mu = [], [], []
     try:
-        fh = open(prefix + ".preArc")
+        fh = open(path)
     except FileNotFoundError:
         fh = None
     if fh is not None:
@@ -364,7 +367,7 @@ def load_pregraph_files(prefix: str, device):
         zeros.new_zeros((cap_v, 4)), n_v,
         torch.zeros(cap_v, dtype=torch.bool, device=device))
 
-    fr, to, mu = _read_pre_arcs(prefix)
+    fr, to, mu = _read_arcs(prefix + ".preArc")
     aset = arcs_mod.ArcSet(dev(fr), dev(to), dev(mu), int(fr.shape[0]))
     return table, edges, aset, k
 
@@ -422,3 +425,106 @@ def write_contig_graph_files(prefix: str, ctg, table, k: int,
         out.append("\n")
     with open(prefix + ".Arc", "w") as fh:
         fh.write("".join(out))
+
+
+_REVCOMP = str.maketrans("ACGT", "TGCA")
+
+
+def _read_contig_fasta(path: str, n: int) -> List[str]:
+    """Sequences of a .contig file by 0-based id ('' where absent)."""
+    seqs = [""] * n
+    try:
+        fh = open(path)
+    except FileNotFoundError:
+        return seqs
+    with fh:
+        cur, buf = None, []
+        for line in fh:
+            if line.startswith(">"):
+                if cur is not None:
+                    seqs[cur] = "".join(buf)
+                cur, buf = int(line.split()[0][1:]) - 1, []
+            else:
+                buf.append(line.strip())
+        if cur is not None:
+            seqs[cur] = "".join(buf)
+    return seqs
+
+
+def load_contig_graph_files(prefix: str, device):
+    """Parse reference .preGraphBasic/.updated.edge/.Arc/.contig into
+    (Contigs, KmerTable, k) on ``device``; row order = .updated.edge
+    record order (file id - 1), the .ContigIndex numbering the map stage
+    uses.  Each contig's first k-mer becomes a row of a small table that
+    its from_node points at, with the right orientation.  Also writes
+    .newContigIndex like the reference scaff loader (loadGraph.c:241-331).
+    Sizes are exact; arc rows stay in file order."""
+    from ..graph import arcs as arcs_mod
+    from ..graph import contig_merge
+
+    _n_vt, k = _read_pregraph_basic(prefix)
+    lengths, bals, cvgs = [], [], []
+    with open(prefix + ".updated.edge") as fh:
+        for line in fh:
+            if line.startswith(">"):
+                f0, f1, rest = line[len(">length "):].split(",", 2)
+                lengths.append(int(f0))
+                bals.append(int(f1))
+                cvgs.append(int(rest.split()[0]))
+    n = len(lengths)
+    length = np.asarray(lengths, np.int64)
+    bal = np.asarray(bals, np.int64)
+    twin = np.arange(n, dtype=np.int64) + np.where(np.abs(bal) == 1, bal, 0)
+
+    # .newContigIndex: re-sort by full length asc, old index asc
+    new_of = np.zeros(n, np.int64)
+    new_of[np.argsort(length, kind="stable")] = np.arange(1, n + 1)
+    with open(prefix + ".newContigIndex", "w") as fh:
+        fh.write("".join(f"{old + 1} {new} {b + 1}\n" for old, (new, b)
+                         in enumerate(zip(new_of.tolist(), bals))))
+
+    # contig sequences (only reps are printed in .contig)
+    seqs = _read_contig_fasta(prefix + ".contig", n)
+    for i in range(n):
+        if not seqs[i] and 0 <= twin[i] < n and seqs[twin[i]]:
+            seqs[i] = seqs[twin[i]].translate(_REVCOMP)[::-1]
+
+    tails = [s[k:] for s in seqs]
+    tail_len = np.asarray([len(t) for t in tails], np.int64)
+    seq_off = np.cumsum(tail_len) - tail_len
+    pool = bits._CHAR2CODE[np.frombuffer("".join(tails).encode(), np.uint8)]
+
+    w = bits.words_for_k(k)
+    keys = np.full((max(n, 1), w), dictionary.SENTINEL, np.int64)
+    from_node = np.full(n, -1, np.int64)
+    code = {"A": 0, "C": 1, "T": 2, "G": 3}
+    for i, s in enumerate(seqs):
+        if len(s) < k:
+            continue
+        v = 0
+        for ch in s[:k]:
+            v = (v << 2) | code.get(ch, 0)
+        can = min(v, _revcomp_int(v, k))
+        keys[i] = _int_to_lanes(can, w)
+        from_node[i] = 2 * i + (0 if v == can else 1)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    cap = max(n, 1)
+    zeros = torch.zeros(cap, dtype=torch.int32, device=device)
+    table = dictionary.KmerTable(
+        dev(keys), zeros, zeros.new_zeros((cap, 4)),
+        zeros.new_zeros((cap, 4)), n,
+        torch.zeros(cap, dtype=torch.bool, device=device))
+
+    fr, to, mu = _read_arcs(prefix + ".Arc")
+    aset = arcs_mod.ArcSet(dev(fr), dev(to), dev(mu), int(fr.shape[0]))
+
+    ctg = contig_merge.Contigs(
+        dev(from_node), dev(np.full(n, -1, np.int64)),
+        dev(np.maximum(length - k, 0)), dev(np.asarray(cvgs, np.int64)),
+        dev(twin), dev(seq_off), dev(pool if pool.size else
+                                     np.zeros(1, np.uint8)), n,
+        dev(np.full(1, -1, np.int64)), aset)
+    return ctg, table, k

@@ -63,8 +63,9 @@ def test_pregraph_files_match_jax_cli(k, reads_cfg, tmp_path, monkeypatch):
 
 
 def test_cli_refuses_unported_and_missing_device(monkeypatch, tmp_path):
-    for argv in (["map", "-s", "c", "-o", "x"], ["scaff", "-g", "x"],
-                 ["all", "-s", "c", "-o", "x"],
+    for argv in (["map", "-s", "c", "-o", "x", "-f"],
+                 ["scaff", "-g", "x", "-F"],
+                 ["all", "-s", "c", "-o", "x", "-R"],
                  ["pregraph", "-s", "c", "-o", "x", "-R"],
                  ["contig", "-g", "x", "-R"]):
         monkeypatch.setenv("SOAPDENOVO_TORCH_DEVICE", "cpu")
