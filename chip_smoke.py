@@ -12,25 +12,35 @@ Phases, each of which raises on failure:
 3. kernel against its plain PyTorch version on the card: the five cases
    of ``tests/test_merge_path.py`` and two sorted 32M-row runs (one
    counting build unit each); rows and counts must be equal position by
-   position; median CUDA-event times of both at 32M + 32M rows;
-4. the port's ``pregraph``, ``contig -g``, ``map -g`` and ``scaff -g``,
-   and then ``all`` on a fresh prefix, on a small simulated fixture on
-   ``cpu`` and on ``cuda`` (K = 23 through the kernel, K = 31 through the
-   three-lane sort) must write identical files, stage by stage and
-   under ``all`` (.scafStatistics with the output prefix replaced, since
-   the report names its own path);
+   position; median CUDA-event times of both at 32M + 32M rows.  Then
+   its two other callers, ``dictionary.merge_packed`` and
+   ``merge_finalize``, on two ``PackedTable``s of 16,777,216 rows each
+   (a quarter of the rows shared) at K = 23: each must launch the kernel
+   once and equal the concat + sort path on the same CUDA tensors (rows,
+   counts and every ``KmerTable`` field), and the times of both paths
+   and of the merge alone (``merge_rows_ms``: the rest is the dedup, or
+   ``_finalize``, after it);
+4. the port's ``pregraph -R``, ``contig -R -g``, ``map -f -r -g``,
+   ``scaff -F -R -g`` and ``scaff -S -F -g`` (they write the files of the
+   plain stages and more), and then ``all`` and ``all -F -f -R`` on
+   fresh prefixes, on a small simulated fixture on ``cpu`` and on
+   ``cuda`` (K = 23 through the kernel, K = 31 through the three-lane
+   sort) must write identical files, stage by stage and under ``all``
+   (.scafStatistics with the output prefix replaced, since the report
+   names its own path; ``.gz`` files decompressed);
 5. pregraph at real size: ``pregraph -K 23`` on 1,000,000 simulated
    read pairs (2x100 bp, insert 300, 10,000 transcripts of 1,500 bp,
    half with SNP isoforms, 0.2% errors, seed 0) through the CLI entry
    point, with the kernel's launch count reset just before; the table
    must count every valid K-window, the .kmerFreq histogram must sum to
    the distinct k-mers, and edges and preArcs must exist;
-6. the main path: ``all -K 23`` through ``cli.main`` on 600,000 pairs
-   of the same simulation (6,000 transcripts, seed 0), with the launch
+6. the main path: ``all -K 23`` through ``cli.main`` on 500,000 pairs
+   of the same simulation (5,000 transcripts, seed 0), with the launch
    count reset just before (``all`` resets the peak-memory statistics
    before each stage).  The contig stage at 1,000,000 pairs takes about
-   950 s on an H100 (31,426 Tour-Bus waves of 30 ms), more than this
-   script's time allows.  Checks: the .contig headers and sequence
+   950 s on an H100 (31,426 Tour-Bus waves of 30 ms), and at 600,000
+   pairs 300-540 s (11,809 launch-bound waves of 25-46 ms, depending on
+   the host), more than this script's time allows.  Checks: the .contig headers and sequence
    lengths agree with .ContigIndex; .updated.edge declares as many
    edges as there are ids; the sequences are ACGT only; every K-window
    of every contig made of one pregraph edge is a k-mer of the pregraph
@@ -40,10 +50,26 @@ Phases, each of which raises on failure:
    singleton of .scafSeq is contig ``row`` of .contig; every N-free
    K-window of every scaffold is a K-window of some contig (both
    strands; the contig k-mers are sorted and looked up on the card);
-   the .scafStatistics totals agree with .scafSeq.
+   the .scafStatistics totals agree with .scafSeq;
+7. the options at full width, with the launch count reset just before:
+   on copies of phase 6's contig files, ``map -f -r -g`` and ``scaff -F
+   -R -g -s cfg`` (gap filling from the 1,000,000 reads), then ``scaff
+   -S -F`` on a copy, which must give the same .scafSeq.  Checks: gaps
+   are filled; at least 90% of the N-free K-windows of the filled
+   sequences, and of the -F scaffolds, are k-mers of the pregraph table
+   (a fill is built from read k-mers); .scafSeq holds fewer N bases than
+   phase 6's; the hits of .RPKM.Stat sum to its Total_unique_reads_num;
+   .readInGap holds as many records as .shortreadInGap.gz.  Then
+   ``pregraph -R`` and ``contig -R -g`` on 220,000 pairs (2,200
+   transcripts, seed 0: two counting build units, so one launch of the
+   merge kernel; at 300,000 pairs Tour-Bus after splitting runs 4,792
+   waves, 123-159 s, too long beside phase 6): .path holds as many records as the recorder
+   counted, .markOnEdge one line per edge, and the repeat edges split
+   are reported.  Seconds of every part and peak bytes are printed.
 
-The line before the last two is a JSON object of the main path's
-numbers; the second-to-last describes the kernel; the last line is
+The line before the last two is a JSON object of phase 7's numbers, the
+one before it of the main path's; the second-to-last describes the
+kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing
 of the JAX package (``soapdenovo_trans_tpu``); the reads come from
 ``perf_e2e.synth``, which imports neither.
@@ -54,7 +80,9 @@ from __future__ import annotations
 import gzip
 import json
 import os
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -66,9 +94,13 @@ import torch
 K = 23
 SMOKE_PAIRS = 1_000_000
 SMOKE_TX = 10_000
-CONTIG_PAIRS = 600_000
-CONTIG_TX = 6_000
+CONTIG_PAIRS = 500_000
+CONTIG_TX = 5_000
+REPS_PAIRS = 220_000
+REPS_TX = 2_200
 UNIT_ROWS = 32_000_000
+PACKED_ROWS = 1 << 24
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 STAGE_FILES = (".kmerFreq", ".vertex", ".preArc", ".preGraphBasic",
                ".peGrads", ".edge.gz")
 CONTIG_FILES = (".contig", ".ContigIndex", ".updated.edge", ".Arc")
@@ -76,6 +108,10 @@ MAP_FILES = (".readOnContig", ".ctg2Read")  # and .peGrads, rewritten
 SCAFF_FILES = (".links", ".scaf", ".scaf_gap", ".contigPosInscaff", ".agp",
                ".scafSeq", ".gapSeq")
 ALL_FILES = STAGE_FILES + CONTIG_FILES + MAP_FILES + SCAFF_FILES
+PATH_FILES = (".path", ".markOnEdge")
+GAP_READ_FILES = (".readInGap", ".shortreadInGap.gz", ".PEreadOnContig.gz")
+READ_TABLES = (".readInformation", ".readOnScaf", ".RPKM.Stat")
+RESUME_INPUTS = (".preGraphBasic",) + CONTIG_FILES
 DEVICES = ("cpu", "cuda")
 WINDOW_BUDGET = 1 << 24  # K-windows chopped on the card at a time
 
@@ -162,7 +198,77 @@ def phase_kernel(merge_path, dev) -> dict:
         f"({moved / ms / 1e9:.3f} TB/s), plain sort {plain_ms:.3f} ms")
     del a, ac, b, bc
     torch.cuda.empty_cache()
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, **phase_packed(merge_path, dev)}
+
+
+def packed_table(dictionary, gen: torch.Generator, extra, dev):
+    """A PackedTable of PACKED_ROWS distinct K = 23 rows (53-bit values:
+    key << 7 | payload) with counts in 1..99, made on the card; it
+    holds every value of ``extra``."""
+    draw = torch.randint(0, 1 << 53, (PACKED_ROWS + (1 << 20),),
+                         generator=gen, device=dev)
+    vals = torch.unique(torch.cat([extra, draw]))[:PACKED_ROWS]
+    if vals.shape[0] != PACKED_ROWS:
+        raise AssertionError("too few distinct rows drawn")
+    rows = torch.stack([vals >> 32, vals & 0xFFFFFFFF], 1)
+    cnt = torch.randint(1, 100, (PACKED_ROWS,), generator=gen,
+                        device=dev).to(torch.int32)
+    return dictionary.PackedTable(rows, cnt, PACKED_ROWS), vals
+
+
+def phase_packed(merge_path, dev) -> dict:
+    """merge_packed and merge_finalize on the card: the kernel path
+    against concat + sort on the same tensors."""
+    from soapdenovo_trans_tpu_torch.ops import dictionary
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    a, a_vals = packed_table(dictionary, gen, torch.zeros(
+        0, dtype=torch.int64, device=dev), dev)
+    b, _ = packed_table(dictionary, gen, a_vals[::4], dev)
+    del a_vals
+
+    before = merge_path.LAUNCHES
+    got = dictionary.merge_packed(a, b)
+    want = dictionary.merge_packed_plain(a, b)
+    table = dictionary.merge_finalize(a, b, K)
+    want_table = dictionary.merge_finalize_plain(a, b, K)
+    torch.cuda.synchronize()
+    if merge_path.LAUNCHES != before + 2:
+        raise AssertionError(
+            f"merge_packed and merge_finalize launched the kernel "
+            f"{merge_path.LAUNCHES - before} times, not once each")
+    shared = 2 * PACKED_ROWS - got.n
+    if not (got.n == want.n and torch.equal(got.rows, want.rows)
+            and torch.equal(got.count, want.count)) or shared <= 0:
+        raise AssertionError("merge_packed differs from concat + sort")
+    for name, x, y in zip(table._fields, table, want_table):
+        if not (torch.equal(x, y) if torch.is_tensor(x) else x == y):
+            raise AssertionError(f"merge_finalize differs from concat + "
+                                 f"sort in {name}")
+    if int(table.count.sum()) != int(a.count.sum()) + int(b.count.sum()):
+        raise AssertionError("merge_finalize lost counts")
+    del got, want, want_table
+    times = {
+        "merge_rows_ms": cuda_ms(
+            lambda: dictionary._merge_rows(a, b), reps=5),
+        "merge_packed_ms": cuda_ms(
+            lambda: dictionary.merge_packed(a, b), reps=5),
+        "merge_packed_plain_ms": cuda_ms(
+            lambda: dictionary.merge_packed_plain(a, b), reps=5),
+        "merge_finalize_ms": cuda_ms(
+            lambda: dictionary.merge_finalize(a, b, K), reps=5),
+        "merge_finalize_plain_ms": cuda_ms(
+            lambda: dictionary.merge_finalize_plain(a, b, K), reps=5)}
+    log(f"[kernel] PackedTable {PACKED_ROWS}+{PACKED_ROWS} rows ({shared} "
+        f"shared, {table.n} keys): merge_packed and merge_finalize launch "
+        f"the kernel once each and equal concat + sort (exact); " +
+        ", ".join(f"{name} {ms:.3f}" for name, ms in times.items()))
+    del a, b, table
+    torch.cuda.empty_cache()
+    return times
 
 
 def run_stage(cli, argv, device: str):
@@ -193,6 +299,16 @@ def assert_same_files(a: str, b: str, exts, what: str) -> None:
         raise AssertionError(f"{what}: .scafStatistics differs")
 
 
+def copy_prefix(src: str, dst: str, exts=None) -> None:
+    """Copy the stage files of prefix src (all of them, or those with
+    the given extensions) to prefix dst."""
+    folder, name = os.path.split(src)
+    for f in os.listdir(folder):
+        if f.startswith(name + ".") and (exts is None
+                                         or f[len(name):] in exts):
+            shutil.copy(os.path.join(folder, f), dst + f[len(name):])
+
+
 def phase_cpu_gpu(cli, pg_stage, perf_e2e, tmp: str) -> None:
     cfg = perf_e2e.synth(tmp, n_tx=40, n_pairs=3000, seed=1)
     default_rows = pg_stage.TARGET_BUILD_ROWS
@@ -201,22 +317,44 @@ def phase_cpu_gpu(cli, pg_stage, perf_e2e, tmp: str) -> None:
         for k in (K, 31):
             staged = {d: os.path.join(tmp, f"small_k{k}_{d}") for d in DEVICES}
             whole = {d: os.path.join(tmp, f"all_k{k}_{d}") for d in DEVICES}
+            flagged = {d: os.path.join(tmp, f"flags_k{k}_{d}")
+                       for d in DEVICES}
+            resumed = {d: os.path.join(tmp, f"resumed_k{k}_{d}")
+                       for d in DEVICES}
             for d in DEVICES:
-                run_cli(cli, cfg, staged[d], k, d)
-            for argv in (["contig", "-g"], ["map", "-s", cfg, "-g"],
-                         ["scaff", "-g"]):
+                run_stage(cli, ["pregraph", "-s", cfg, "-K", str(k), "-R",
+                                "-o", staged[d]], d)
+            for argv in (["contig", "-R", "-g"],
+                         ["map", "-s", cfg, "-f", "-r", "-g"],
+                         ["scaff", "-s", cfg, "-F", "-R", "-g"]):
                 for d in DEVICES:
                     run_stage(cli, argv + [staged[d]], d)
             for d in DEVICES:
+                copy_prefix(staged[d], resumed[d])
+                run_stage(cli, ["scaff", "-s", cfg, "-S", "-F", "-g",
+                                resumed[d]], d)
                 run_stage(cli, ["all", "-s", cfg, "-K", str(k), "-o",
                                 whole[d]], d)
+                run_stage(cli, ["all", "-s", cfg, "-K", str(k), "-F", "-f",
+                                "-R", "-o", flagged[d]], d)
+            extras = GAP_READ_FILES + READ_TABLES
             assert_same_files(staged["cpu"], staged["cuda"],
-                              ALL_FILES + (".newContigIndex",),
-                              f"K={k}, stage by stage, cpu vs cuda")
+                              ALL_FILES + (".newContigIndex",) + PATH_FILES
+                              + extras,
+                              f"K={k}, stage by stage with -R -f -r -F, "
+                              f"cpu vs cuda")
+            assert_same_files(resumed["cpu"], resumed["cuda"], SCAFF_FILES,
+                              f"K={k}, scaff -S -F, cpu vs cuda")
+            assert_same_files(resumed["cuda"], staged["cuda"], (".scafSeq",),
+                              f"K={k}, scaff -S -F vs scaff -F")
             assert_same_files(whole["cpu"], whole["cuda"], ALL_FILES,
                               f"K={k}, all, cpu vs cuda")
-            log(f"[parity] K={k}: cpu and cuda files of pregraph, contig, "
-                f"map and scaff identical, stage by stage and under all")
+            assert_same_files(flagged["cpu"], flagged["cuda"],
+                              ALL_FILES + extras,
+                              f"K={k}, all -F -f -R, cpu vs cuda")
+            log(f"[parity] K={k}: cpu and cuda files of pregraph -R, "
+                f"contig -R, map -f -r, scaff -F -R and scaff -S -F "
+                f"identical stage by stage, and under all and all -F -f -R")
     finally:
         pg_stage.TARGET_BUILD_ROWS = default_rows
 
@@ -525,6 +663,157 @@ def phase_all(cli, merge_path, perf_e2e, smi: str, tmp: str):
         f"{s} {t:.1f}s" for s, t in res.stage_seconds.items()) +
         f"; peak GB {peaks}; {tb['waves']} Tour-Bus waves of "
         f"{tb['s_per_wave'] * 1e3:.2f} ms on {smi}")
+    return launches, numbers, res, cfg, out
+
+
+def timed_stage(cli, argv, seconds: dict, peaks: dict, name: str):
+    """One CLI call on the card, its seconds (device synchronized) and
+    peak bytes recorded under ``name``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = run_stage(cli, argv, "cuda")
+    torch.cuda.synchronize()
+    seconds[name] = time.time() - t0
+    peaks[name] = torch.cuda.max_memory_allocated()
+    return res
+
+
+def read_in_gap_records(path: str) -> int:
+    """Records of a binary .readInGap: int32 len, contig, pos, then
+    len // 4 + 1 bytes of 2-bit bases."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    pos = n = 0
+    while pos < len(data):
+        (ln,) = struct.unpack_from("<i", data, pos)
+        pos += 12 + ln // 4 + 1
+        n += 1
+    if pos != len(data):
+        raise AssertionError(".readInGap ends inside a record")
+    return n
+
+
+def phase_flags(cli, merge_path, perf_e2e, smi: str, tmp: str, all_res,
+                cfg: str, all_out: str):
+    """Phase 7: the options at full width."""
+    from soapdenovo_trans_tpu_torch.io import stagefiles
+    from soapdenovo_trans_tpu_torch.ops import dictionary, kmer
+
+    dev = torch.device("cuda")
+    seconds, peaks = {}, {}
+    table = all_res.pregraph.table
+    base_n = sum(s.count("N") for _, s in all_res.scaff.recs)
+    merge_path.LAUNCHES = 0
+    t_phase = time.time()
+
+    # gap reads, read tables and gap filling on phase 6's contigs
+    out = os.path.join(tmp, "fill")
+    copy_prefix(all_out, out, RESUME_INPUTS)
+    mres = timed_stage(cli, ["map", "-s", cfg, "-f", "-r", "-g", out],
+                       seconds, peaks, "map -f -r")
+    sres = timed_stage(cli, ["scaff", "-s", cfg, "-F", "-R", "-g", out],
+                       seconds, peaks, "scaff -F -R")
+    resumed = os.path.join(tmp, "resume")
+    copy_prefix(out, resumed)
+    timed_stage(cli, ["scaff", "-s", cfg, "-S", "-F", "-g", resumed],
+                seconds, peaks, "scaff -S -F")
+    assert_same_files(out, resumed, (".scafSeq", ".gapSeq"),
+                      "scaff -S -F after scaff -F")
+
+    kinds = {}
+    for _idx, _ji, kind, _seq in sres.gap_report:
+        kinds[kind] = kinds.get(kind, 0) + 1
+    junctions = sum(len(t.contigs) - 1 for t in sres.transcripts)
+    if not kinds.get("localasm", 0) + kinds.get("overlap", 0):
+        raise AssertionError(f"no gap filled of {junctions}: {kinds}")
+    fills = [seq for _i, _j, kind, seq in sres.gap_report
+             if kind == "localasm"]
+    n_fill, hit_fill = table_windows(kmer, dictionary, table.keys, fills, K,
+                                     dev)
+    scaffolds = [s for h, s in sres.recs if h.startswith("scaffold")]
+    n_win, hit_win = table_windows(kmer, dictionary, table.keys, scaffolds,
+                                   K, dev)
+    for what, n, hit in (("filled sequences", n_fill, hit_fill),
+                         ("-F scaffolds", n_win, hit_win)):
+        if n and hit < 0.9 * n:
+            raise AssertionError(f"only {hit} of {n} N-free K-windows of "
+                                 f"the {what} are read k-mers")
+    fill_n = sum(s.count("N") for _, s in sres.recs)
+    if not fill_n < base_n:
+        raise AssertionError(f".scafSeq holds {fill_n} N bases with -F, "
+                             f"{base_n} without")
+    with open(out + ".RPKM.Stat") as fh:
+        lines = fh.read().splitlines()
+    total = int(lines[1].split("=")[1])
+    hits = sum(int(line.split("\t")[2]) for line in lines[3:])
+    if not 0 < total == hits <= mres.mapped:
+        raise AssertionError(f".RPKM.Stat: hits sum to {hits}, "
+                             f"Total_unique_reads_num={total}, "
+                             f"{mres.mapped} reads mapped")
+    in_gap = read_in_gap_records(out + ".readInGap")
+    short = read_stage_file(out + ".shortreadInGap.gz").count(b">read_")
+    if not in_gap == short == mres.gap_reads:
+        raise AssertionError(f".readInGap holds {in_gap} records, "
+                             f".shortreadInGap.gz {short}, the map stage "
+                             f"counted {mres.gap_reads}")
+    log(f"[flags] {junctions} junctions: {kinds}; {hit_fill} of {n_fill} "
+        f"K-windows of the {len(fills)} local assemblies and {hit_win} of "
+        f"{n_win} of the scaffolds are read k-mers; N bases {base_n} -> "
+        f"{fill_n}; {in_gap} gap reads, {mres.pe_rows} PE rows; RPKM hits "
+        f"{hits}")
+
+    # read paths and repeat splitting on a smaller simulation
+    t0 = time.time()
+    reps_dir = os.path.join(tmp, "reps")
+    os.makedirs(reps_dir)
+    reps_cfg = perf_e2e.synth(reps_dir, n_tx=REPS_TX, n_pairs=REPS_PAIRS,
+                              seed=0)
+    seconds["simulate reps"] = time.time() - t0
+    reps = os.path.join(reps_dir, "reps")
+    pres = timed_stage(cli, ["pregraph", "-s", reps_cfg, "-K", str(K), "-R",
+                             "-o", reps], seconds, peaks, "pregraph -R")
+    recs = stagefiles.read_path_bin(reps + ".path")
+    with open(reps + ".markOnEdge") as fh:
+        marks = sum(1 for _ in fh)
+    if len(recs) != pres.path_reads or pres.path_reads <= 0 or \
+            marks != pres.edges.n_edges:
+        raise AssertionError(
+            f".path holds {len(recs)} records, the recorder counted "
+            f"{pres.path_reads}; .markOnEdge has {marks} lines for "
+            f"{pres.edges.n_edges} edges")
+    n_path_edges = sum(map(len, recs))
+    del recs
+    cres, _table, _k = timed_stage(cli, ["contig", "-R", "-g", reps],
+                                   seconds, peaks, "contig -R")
+    if cres.reps_split is None:
+        raise AssertionError("contig -R did not read .path")
+    check_contig_files(reps, cres.contigs.n)
+    launches = merge_path.LAUNCHES
+    if launches < 1:
+        raise AssertionError("phase 7 never launched the merge kernel")
+    numbers = {
+        "card": smi, "pairs": CONTIG_PAIRS, "phase_s": time.time() - t_phase,
+        "seconds": seconds, "peak_bytes": peaks,
+        "map": {"gap_reads": in_gap, "pe_rows": mres.pe_rows,
+                "phase_s": mres.phase_seconds},
+        "scaff": {"junctions": junctions, "closed": kinds,
+                  "fill_windows": n_fill, "fill_window_share":
+                  hit_fill / max(n_fill, 1), "scaffold_window_share":
+                  hit_win / max(n_win, 1), "n_bases_before": base_n,
+                  "n_bases_after": fill_n, "rpkm_hits": hits,
+                  "phase_s": sres.phase_seconds},
+        "reps": {"pairs": REPS_PAIRS, "path_reads": pres.path_reads,
+                 "path_edges": n_path_edges, "edges": pres.edges.n_edges,
+                 "split": cres.reps_split, "contigs": cres.contigs.n,
+                 "pregraph_phase_s": pres.phase_seconds,
+                 "contig_phase_s": cres.phase_seconds,
+                 "waves": cres.tourbus["waves"]},
+        "merge_launches": launches}
+    log(f"[flags] {numbers['phase_s']:.1f}s: " + ", ".join(
+        f"{name} {sec:.1f}s" for name, sec in seconds.items()) +
+        f"; {pres.path_reads} read paths, {cres.reps_split} repeat edges "
+        f"split on {smi}")
     return launches, numbers
 
 
@@ -546,24 +835,49 @@ def main() -> int:
     from soapdenovo_trans_tpu_torch.stages import pregraph as pg_stage
 
     dev = torch.device("cuda")
+    clock = [time.time()]
+    script_s = {}
+
+    def lap(name):
+        clock.append(time.time())
+        script_s[name] = clock[-1] - clock[-2]
+
     timing = phase_kernel(merge_path, dev)
+    lap("kernel")
     with tempfile.TemporaryDirectory() as tmp:
         phase_cpu_gpu(cli, pg_stage, perf_e2e, tmp)
-        phase_slice(cli, merge_path, perf_e2e, tmp)
+        lap("cpu_gpu")
+        slice_launches = phase_slice(cli, merge_path, perf_e2e, tmp)
+        lap("pregraph_1m")
     with tempfile.TemporaryDirectory() as tmp:
-        launches, numbers = phase_all(cli, merge_path, perf_e2e,
-                                      smi.splitlines()[0], tmp)
+        launches, numbers, res, cfg, out = phase_all(
+            cli, merge_path, perf_e2e, smi.splitlines()[0], tmp)
+        lap("all")
+        flag_launches, flag_numbers = phase_flags(
+            cli, merge_path, perf_e2e, smi.splitlines()[0], tmp, res, cfg,
+            out)
+        lap("options")
+        del res
+    log("[script] seconds of each phase, simulation and checks included: "
+        + json.dumps(script_s))
     foreign = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "soapdenovo_trans_tpu"))
+                     if m.split(".")[0] in ("jax", "soapdenovo_trans_tpu",
+                                            "pandas"))
     if foreign:
-        raise AssertionError(f"the port loaded JAX modules: {foreign[:5]}")
+        raise AssertionError(f"the port loaded JAX modules or pandas: "
+                             f"{foreign[:5]}")
 
     log("[all] " + json.dumps(numbers))
+    log("[flags] " + json.dumps(flag_numbers))
     log(json.dumps({"kernels": [{
         "name": "merge_path", "route": "cuda",
         "source": "soapdenovo_trans_tpu_torch/csrc/merge_path.cu",
         "replaces": "soapdenovo_trans_tpu/kernels/merge_path.py:284",
-        "launches": launches, **timing}]}))
+        "launches": launches,
+        "launches_by_path": {"pregraph_1m": slice_launches,
+                             "all_500k": launches,
+                             "options_500k_220k": flag_launches},
+        **timing}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

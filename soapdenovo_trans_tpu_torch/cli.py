@@ -2,11 +2,9 @@
 
 The five subcommands take the same flags, with the same defaults, as
 ``python -m soapdenovo_trans_tpu`` (reference main.c:49-106,
-pregraph.c:118-185, contig.c:311, map.c:115, scaffold.c:108).  Not
-ported yet, and refused with a message: ``pregraph -R``, ``contig -R``,
-``map -f/-r/-R``, ``scaff -F/-S/-r/-R`` and the same flags on ``all``.
-The parser is this module's own: the port loads no module of the JAX
-package.
+pregraph.c:118-185, contig.c:311, map.c:115, scaffold.c:108), and write
+the same files.  The parser is this module's own: the port loads no
+module of the JAX package.
 
 The device comes from ``SOAPDENOVO_TORCH_DEVICE`` (default ``cuda``);
 a missing device is an error, never a silent fallback to the CPU.
@@ -17,6 +15,7 @@ Usage:
     python -m soapdenovo_trans_tpu_torch contig -g out
     python -m soapdenovo_trans_tpu_torch map -s reads.config -g out
     python -m soapdenovo_trans_tpu_torch scaff -g out
+    python -m soapdenovo_trans_tpu_torch all -s reads.config -o out -F -f -R
 """
 
 from __future__ import annotations
@@ -33,6 +32,10 @@ import torch
 
 READ_BATCH = 131072  # reads per IO batch
 MAP_BATCH = 131072   # reads per map batch (even: mates share a batch)
+# map -f lists its gap reads block by block of this many rows of each
+# read stream (the JAX package's map batch); under -f a map batch is a
+# whole number of such blocks
+GAP_READ_BLOCK = 4096
 
 
 def _add_common(p) -> None:
@@ -63,7 +66,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="count N-containing kmer windows under one "
                          "sentinel entry (reference prlHashReads.c:207)")
     pg.add_argument("-R", dest="reps_tie", action="store_true",
-                    help="record read paths (not ported yet)")
+                    help="record read paths: .path + .markOnEdge "
+                         "(recordPathBin, prlRead2path.c:507; the "
+                         "reference's own -R case is commented out, "
+                         "pregraph.c:149-151)")
 
     cg = sub.add_parser("contig", help="edge graph -> contigs")
     cg.add_argument("-g", dest="out", required=True,
@@ -76,7 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
     cg.add_argument("-Q", dest="light_flow", type=int, default=2)
     cg.add_argument("-H", dest="high_arc", type=int, default=200)
     cg.add_argument("-R", dest="reps_tie", action="store_true",
-                    help="solve repeats by read paths (not ported yet)")
+                    help="splitReps: duplicate repeat edges whose "
+                         "neighbor pairing is resolved by .path read paths")
     cg.add_argument("-S", dest="short_cutoff", type=int, default=48,
                     help="remove short-contig components below this "
                          "length (reference cut_length, contig.c:333)")
@@ -84,29 +91,30 @@ def build_parser() -> argparse.ArgumentParser:
     mp = sub.add_parser("map", help="reads -> contig placements")
     _add_common(mp)
     mp.add_argument("-f", dest="gap_reads", action="store_true",
-                    help="output gap related reads (not ported yet)")
+                    help="output gap related reads (.readInGap/"
+                         ".PEreadOnContig.gz/.shortreadInGap.gz)")
     mp.add_argument("-r", dest="read_trace", action="store_true",
-                    help="write .readInformation (not ported yet)")
+                    help="write .readInformation")
     mp.add_argument("-R", dest="rpkm", action="store_true",
-                    help="write .readInformation (not ported yet)")
+                    help="write .readInformation")
 
     sc = sub.add_parser("scaff", help="links -> transcripts")
     sc.add_argument("-g", dest="out", required=True)
     sc.add_argument("-s", dest="config", default=None,
-                    help="lib config (read only by -F)")
+                    help="lib config (needed to re-stream reads for -F)")
     sc.add_argument("-L", dest="min_contig", type=int, default=100)
     sc.add_argument("-t", dest="max_transcripts", type=int, default=5)
     sc.add_argument("-G", dest="gap_len_diff", type=int, default=50,
                     help="allowed gap-size error for gap filling (-F)")
     sc.add_argument("-F", dest="fill_gaps", action="store_true",
-                    help="fill gaps (not ported yet)")
+                    help="fill gaps by local assembly of their reads")
     sc.add_argument("-S", dest="skip_scaffold", action="store_true",
-                    help="resume from .scaf_gap (not ported yet)")
+                    help="reuse the transcript structure of .scaf_gap "
+                         "(resume straight into gap closing)")
     sc.add_argument("-r", dest="read_trace", action="store_true",
-                    help="write .readOnScaf (not ported yet)")
+                    help="write .readOnScaf")
     sc.add_argument("-R", dest="rpkm", action="store_true",
-                    help="write .readOnScaf and .RPKM.Stat "
-                         "(not ported yet)")
+                    help="write .readOnScaf and .RPKM.Stat")
     sc.add_argument("-N", dest="genome_size", type=int, default=0,
                     help="known genome/transcriptome size for NG50 in "
                          ".scafStatistics (reference scaffold.c:124)")
@@ -151,21 +159,6 @@ def build_parser() -> argparse.ArgumentParser:
     # mean rpkm and skip_scaffold)
     al.set_defaults(reps_tie=False, short_cutoff=48, genome_size=0)
     return ap
-
-
-_REFUSED = {"pregraph": ("reps_tie",), "contig": ("reps_tie",),
-            "map": ("gap_reads", "read_trace", "rpkm"),
-            "scaff": ("fill_gaps", "skip_scaffold", "read_trace", "rpkm"),
-            "all": ("gap_reads", "fill_gaps", "skip_scaffold",
-                    "read_trace", "rpkm")}
-_FLAG = {"reps_tie": "-R", "gap_reads": "-f", "read_trace": "-r", "rpkm": "-R",
-         "fill_gaps": "-F", "skip_scaffold": "-S"}
-
-
-def _refuse_unported(args) -> None:
-    for dest in _REFUSED.get(args.cmd, ()):
-        if getattr(args, dest):
-            sys.exit(f"{args.cmd} {_FLAG[dest]} is not ported yet")
 
 
 def device_from_env() -> torch.device:
@@ -253,8 +246,23 @@ def run_pregraph_cmd(args, device: torch.device):
     if args.k % 2 == 0 or not (13 <= args.k <= 127):
         sys.exit("K must be odd and within 13..127")
     factory = _CountingFactory(cfg, n_kmer_k=args.k if args.n_kmer else 0)
-    res = pg_stage.run_pregraph(factory, args.k, device,
-                                low_freq_cutoff=args.low_kmer)
+    recorders = []
+
+    def recorder_factory(edges):
+        file_id, _order, nxt = graph_files.edge_file_ids(edges)
+        recorders.append((stagefiles.PathRecorder(
+            args.out + ".path", file_id, nxt), nxt))
+        return recorders[0][0]
+
+    res = pg_stage.run_pregraph(
+        factory, args.k, device, low_freq_cutoff=args.low_kmer,
+        path_recorder_factory=recorder_factory if args.reps_tie else None)
+    if recorders:
+        rec, nxt = recorders[0]
+        stagefiles.write_mark_on_edge(
+            args.out + ".markOnEdge", rec.close(), nxt - 1)
+        res.path_reads = rec.n_reads
+        print(f"[pregraph] wrote {args.out}.path/.markOnEdge")
     hist = pg_stage.kmer_freq_histogram(res.table)
     if factory.n_windows:
         # -n: the reference hashes every N-containing window as one
@@ -297,6 +305,23 @@ def run_contig_cmd(args, device: torch.device, res=None):
     else:
         k, table, edges, aset = res.k, res.table, res.edges, res.arcs
 
+    n_split, split_s = None, {}
+    if args.reps_tie and os.path.exists(args.out + ".path"):
+        # solveReps superset (splitReps.c:456; never reached in the
+        # reference Trans flow) — resolve repeats with read paths
+        from .graph import split_reps
+
+        t0 = time.time()
+        file_id, _order, nxt = graph_files.edge_file_ids(edges)
+        inv = np.full(nxt + 1, -1, np.int64)
+        inv[file_id] = np.arange(file_id.shape[0])
+        edges, aset, n_split = split_reps.solve_reps(
+            edges, aset, split_reps.path_triples(
+                stagefiles.read_path_bin(args.out + ".path"), inv))
+        split_s = {"split": time.time() - t0}
+        print(f"[contig] splitReps: {n_split} repeat edges split "
+              f"({split_s['split']:.1f}s)")
+
     params = contig_stage.ContigParams(
         weak_cvg=10 * args.edge_cov, merge_level=args.merge_level,
         light_out_pct=args.light_out, light_flow_pct=args.light_flow,
@@ -319,8 +344,9 @@ def run_contig_cmd(args, device: torch.device, res=None):
         ctg.n, device=device)
     edge_contig = torch.where(result.edge_contig >= 0, old2new[
         result.edge_contig.clamp(min=0)], -1)
-    return dataclasses.replace(result, contigs=ctg,
-                               edge_contig=edge_contig), table, k
+    return dataclasses.replace(
+        result, contigs=ctg, edge_contig=edge_contig, reps_split=n_split,
+        phase_seconds={**result.phase_seconds, **split_s}), table, k
 
 
 @dataclasses.dataclass
@@ -332,6 +358,52 @@ class MapResult:
     groups: int         # qualifying (read, contig) groups: .ctg2Read rows
     index_kmers: int    # unique contig k-mers in the index
     phase_seconds: Dict[str, float]  # index, reads (vote: device part)
+    gap_reads: Optional[int] = None  # -f: .readInGap records
+    pe_rows: Optional[int] = None    # -f: .PEreadOnContig.gz rows
+
+
+def _gap_read_rows(pl_ctg, pl_pos, per_read, codes, lengths, row_no, ins):
+    """The -f rows of one map batch.  Returns (GapReads, pe_rows):
+
+    * a footprint read (qualifying groups on >= 2 contigs) that is
+      placed goes into its contig's gap as it is — the gap-spanning
+      evidence (recordAlldgn, prlRead2Ctg.c:593);
+    * of a pair (``ins`` > 0 or not; None for an unpaired library) with
+      one mate placed, the other is dropped into the gap at the placed
+      mate's position + insert size - its own length;
+    * a pair with both mates placed is a .PEreadOnContig row.
+
+    The gap reads come block by block of GAP_READ_BLOCK rows: the
+    footprint reads of a block, then the pairs whose second mate is
+    unplaced, then those whose first is."""
+    from .io import stagefiles
+
+    real = lengths > 0
+    fp = np.flatnonzero((per_read >= 2) & (pl_ctg >= 0) & real)
+    # columns: order key row, class, source row, contig, position
+    parts = [(fp, 0, fp, pl_ctg[fp], pl_pos[fp])]
+    pe = np.zeros((0, 5), np.int64)
+    if ins is not None:
+        t1 = np.arange(0, lengths.shape[0] - 1, 2)
+        t2 = t1 + 1
+        alive = real[t1] | real[t2]
+        c1, c2 = pl_ctg[t1], pl_ctg[t2]
+        both = alive & (c1 >= 0) & (c2 >= 0)
+        pe = np.stack([row_no[t1[both]] + 1, c1[both], pl_pos[t1[both]],
+                       c2[both], pl_pos[t2[both]]], 1)
+        for cls, placed, lost in ((1, t1, t2), (2, t2, t1)):
+            m = alive & (pl_ctg[placed] >= 0) & (pl_ctg[lost] < 0) & \
+                (lengths[lost] > 0)
+            parts.append((t1[m], cls, lost[m], pl_ctg[placed[m]],
+                          pl_pos[placed[m]] + ins - lengths[lost[m]]))
+    key = np.concatenate([p[0] for p in parts])
+    cls = np.concatenate([np.full(p[0].shape[0], p[1]) for p in parts])
+    order = np.lexsort((key, cls, key // GAP_READ_BLOCK))
+    src = np.concatenate([p[2] for p in parts])[order]
+    return stagefiles.GapReads(
+        row_no[src] + 1, np.concatenate([p[3] for p in parts])[order],
+        np.concatenate([p[4] for p in parts])[order], codes[src],
+        lengths[src]), pe
 
 
 def run_map_cmd(args, device: torch.device, ctg=None, table=None):
@@ -355,7 +427,11 @@ def run_map_cmd(args, device: torch.device, ctg=None, table=None):
     full_len = ctg.length + k
     t1 = time.time()
 
-    group_rows = []  # per batch: (read, ctg, ctg_off, read_off, same)
+    group_rows = []  # per batch: (read, ctg, ctg_off, read_off, same, align)
+    gap_parts, pe_parts = [], []  # -f payloads, per batch
+    batch = MAP_BATCH
+    if args.gap_reads:
+        batch = max(batch // GAP_READ_BLOCK, 1) * GAP_READ_BLOCK
     base = 0  # global REAL-read counter: padded rows (length 0) are not
     #           numbered, matching the reference's dense readno space
     #           (readCounter, prlRead2Ctg.c:539)
@@ -363,7 +439,7 @@ def run_map_cmd(args, device: torch.device, ctg=None, table=None):
     max_read_len = 0
     vote_s = 0.0
     for codes, lengths, li in fastx.config_read_batches(
-            cfg, MAP_BATCH, purpose=2):
+            cfg, batch, purpose=2):
         lib = cfg.libs[li]
         real = lengths > 0
         n_real = int(real.sum())
@@ -384,9 +460,19 @@ def run_map_cmd(args, device: torch.device, ctg=None, table=None):
             map_len=lib.map_len or 32)
         q = pl.g_valid
         g = torch.stack([pl.g_read[q], pl.g_ctg[q], pl.g_ctg_off[q],
-                         pl.g_read_off[q], pl.g_same[q].to(torch.int64)]
-                        ).cpu().numpy()
+                         pl.g_read_off[q], pl.g_same[q].to(torch.int64),
+                         pl.g_align[q]]).cpu().numpy()
         vote_s += time.time() - tv
+        if args.gap_reads:
+            # qualifying groups on distinct contigs, per batch row
+            pairs = np.unique(g[0] * (ctg.n + 1) + g[1])
+            gaps, pe = _gap_read_rows(
+                pl.ctg.cpu().numpy(), pl.pos.cpu().numpy(),
+                np.bincount(pairs // (ctg.n + 1), minlength=rows),
+                codes, lengths.astype(np.int64), row_no,
+                lib.avg_ins if lib.has_pairs else None)
+            gap_parts.append(gaps)
+            pe_parts.append(pe)
         if lib.has_pairs and lib.avg_ins > 0:
             ins, n_obs = connections.estimate_insert_size(
                 pl.ctg, pl.pos, ctg.twin, full_len, lib.avg_ins)
@@ -418,9 +504,9 @@ def run_map_cmd(args, device: torch.device, ctg=None, table=None):
             grads.append((lib.avg_ins, bound, 0, lib.pair_num_cut))
     stagefiles.write_pe_grads(
         args.out + ".peGrads", grads, base, max_read_len)
-    g_read, g_ctg, g_off, g_roff, g_same = (
+    g_read, g_ctg, g_off, g_roff, g_same, g_aln = (
         np.concatenate(group_rows, 1) if group_rows
-        else np.zeros((5, 0), np.int64))
+        else np.zeros((6, 0), np.int64))
     # .readOnContig: one line per mapped read; odd readnos report the
     # LAST alignment group, even the FIRST (recordAlldgn,
     # prlRead2Ctg.c:565-568); pos = contigOffset - readOffset + 1
@@ -435,10 +521,40 @@ def run_map_cmd(args, device: torch.device, ctg=None, table=None):
     stagefiles.write_placement_table(
         args.out + ".ctg2Read", g_read + 1, g_ctg + 1, g_roff - g_off,
         orien_col)
+    if args.read_trace or args.rpkm:
+        # .readInformation (reference prlRead2Ctg.c:575-588, -r/-R):
+        # readno readOffset-1 ctg ctgOffset alignLen+K-1 orien, with
+        # '-' rows flipped back to the stored-orientation contig
+        twin = ctg.twin.cpu().numpy()
+        alen = g_aln + k - 1
+        safe_ctg = np.clip(g_ctg, 0, twin.shape[0] - 1)
+        plus = g_same == 1
+        stagefiles.write_read_information(
+            args.out + ".readInformation", g_read + 1, g_roff - 1,
+            np.where(plus, g_ctg, twin[safe_ctg]) + 1,
+            np.where(plus, g_off,
+                     full_len.cpu().numpy()[safe_ctg] - g_off - alen),
+            alen, orien_col)
+        print(f"[map] wrote {args.out}.readInformation "
+              f"({g_read.size} alignments)")
+    n_gap = n_pe = None
+    if args.gap_reads:
+        gaps = stagefiles.GapReads.concat(gap_parts, cfg.max_rd_len)
+        pe = np.concatenate(pe_parts) if pe_parts \
+            else np.zeros((0, 5), np.int64)
+        stagefiles.write_read_in_gap(args.out + ".readInGap", gaps)
+        stagefiles.write_pe_read_on_contig(
+            args.out + ".PEreadOnContig.gz", pe)
+        stagefiles.write_short_read_in_gap(
+            args.out + ".shortreadInGap.gz", gaps)
+        n_gap, n_pe = len(gaps), pe.shape[0]
+        print(f"[map] wrote {n_gap} gap reads (.readInGap/"
+              f".shortreadInGap.gz), {n_pe} PE placements "
+              f"(.PEreadOnContig.gz)")
     print(f"[map] wrote {args.out}.readOnContig/.ctg2Read/.peGrads")
     return MapResult(base, int(sel.size), int(g_read.size), index.n, {
         "index": t1 - t0, "reads": t2 - t1, "vote": vote_s,
-        "write": time.time() - t2})
+        "write": time.time() - t2}, n_gap, n_pe)
 
 
 def run_scaff_cmd(args, device: torch.device, ctg=None, table=None):
@@ -447,9 +563,12 @@ def run_scaff_cmd(args, device: torch.device, ctg=None, table=None):
     map stage's files (.peGrads/.readOnContig/.ctg2Read), like the
     reference's PE2Links/Links2Scaf/singleRead2connection.  Writes
     .links/.scafSeq/.gapSeq/.scaf/.scaf_gap/.contigPosInscaff/.agp/
-    .scafStatistics; returns the ScaffResult, with the seconds of the
+    .scafStatistics, with -r/-R .readOnScaf (from map -r's
+    .readInformation) and with -R .RPKM.Stat; -F fills gaps from the
+    reads of the -s config; -S takes the transcripts from an earlier
+    run's .scaf_gap.  Returns the ScaffResult, with the seconds of the
     link build and the writers added to its phase_seconds."""
-    from .io import fastx, graph_files, stagefiles
+    from .io import fastx, graph_files, libconfig, stagefiles
     from .stages import pelinks
     from .stages import scaff as scaff_stage
 
@@ -461,17 +580,35 @@ def run_scaff_cmd(args, device: torch.device, ctg=None, table=None):
     else:
         k = args.k
     t0 = time.time()
-    conn, ins_size_var = pelinks.build_connections(
+    conn, extras = pelinks.build_connections(
         args.out, ctg, k, min_unique_len=args.min_contig)
     print(f"[scaff] {conn.n} contig connections from "
           f"{args.out}.readOnContig/.ctg2Read")
     params = scaff_stage.ScaffParams(
         min_unique_len=args.min_contig,
         max_transcripts=args.max_transcripts, max_cnt=args.max_cnt,
-        ins_size_var=ins_size_var)
+        ins_size_var=extras["ins_size_var"],
+        gap_len_diff=args.gap_len_diff, fill_gaps=args.fill_gaps)
+    read_ctg = extras["read_ctg"]
+    gap_read_source = None
+    if args.fill_gaps and args.config and read_ctg is not None:
+        cfg = libconfig.parse_config(args.config)
+        gap_read_source = (
+            read_ctg, extras["read_pos"],
+            lambda: fastx.config_read_batches(cfg, READ_BATCH, purpose=2),
+            extras["read_ins"])
+    preset = None
+    if args.skip_scaffold:
+        # .scaf_gap coordinates are in K-exclusive contig-length space
+        # (reference outputOneTranscriptome, transcriptome.c:1210)
+        preset = stagefiles.read_scaf_gap(
+            args.out + ".scaf_gap", ctg.length.cpu().numpy(), k)
+        print(f"[scaff] -S: reusing {len(preset)} transcript structures "
+              f"from {args.out}.scaf_gap")
     t1 = time.time()
-    sres = scaff_stage.run_scaff(ctg, conn, k, table, params,
-                                 ctg_arcs=ctg.arcs)
+    sres = scaff_stage.run_scaff(
+        ctg, conn, k, table, params, ctg_arcs=ctg.arcs,
+        gap_read_source=gap_read_source, preset_transcripts=preset)
     t2 = time.time()
     recs = sres.recs
     fastx.write_fasta(args.out + ".scafSeq", recs)
@@ -482,12 +619,44 @@ def run_scaff_cmd(args, device: torch.device, ctg=None, table=None):
         routes=sres.routes, n_runs=sres.n_runs)
     stagefiles.write_scaf_statistics(
         args.out, known_genome_size=args.genome_size)
+    if (args.read_trace or args.rpkm) and read_ctg is not None:
+        _write_read_tables(args, sres, ctg, k, read_ctg)
     n_scaf = sum(1 for h, _ in recs if h.startswith("scaffold"))
     print(f"[scaff] {n_scaf} transcripts + {len(recs) - n_scaf} "
           f"singletons -> {args.out}.scafSeq "
           f"(N50={sres.stats.get('N50', 0)})")
     sres.phase_seconds.update(links=t1 - t0, write=time.time() - t2)
     return sres
+
+
+def _write_read_tables(args, sres, ctg, k: int, read_ctg) -> None:
+    """scaff -r/-R: .readOnScaf, the join of map -r's .readInformation
+    with .contigPosInscaff (getReadOnScaf, ReadTrace.c:41-160), and
+    with -R .RPKM.Stat, in float64 on the host."""
+    from .io import stagefiles
+    from .stages import scaff as scaff_stage
+
+    twin = ctg.twin.cpu().numpy()
+    if os.path.exists(args.out + ".readInformation"):
+        stagefiles.write_read_on_scaf(
+            args.out, k, ctg.length.cpu().numpy() + k, twin)
+        print(f"[scaff] wrote {args.out}.readOnScaf")
+    else:
+        print("[scaff] -r: no .readInformation (rerun map with -r) — "
+              ".readOnScaf not written")
+    if not args.rpkm:
+        return
+    owner = scaff_stage.record_membership(
+        sres.recs, sres.transcripts, twin, ctg.n)
+    _rec_of, hits = scaff_stage.reads_on_scaffolds(
+        read_ctg, owner, len(sres.recs))
+    with open(args.out + ".RPKM.Stat", "w") as fh:
+        fh.write("# Notice:RPKM calculation base on K-mer mapping.\n")
+        fh.write(f"# Total_unique_reads_num={int(hits.sum())}\n")
+        fh.write("Transcript_ID\tLength\tUniq_reads_num\tRPKM\n")
+        for name, ln, h, rp in scaff_stage.rpkm_table(sres.recs, hits):
+            fh.write(f"{name}\t{ln}\t{h}\t{rp:f}\n")
+    print(f"[scaff] wrote {args.out}.RPKM.Stat")
 
 
 @dataclasses.dataclass
@@ -538,7 +707,6 @@ def main(argv=None):
     ``PregraphResult``, ``run_contig_cmd``'s tuple, a ``MapResult``, a
     ``ScaffResult`` or, for ``all``, an ``AllResult``."""
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
     device = device_from_env()
     t0 = time.time()
     run = {"pregraph": run_pregraph_cmd, "contig": run_contig_cmd,

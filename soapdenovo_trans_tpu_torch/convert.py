@@ -3,11 +3,13 @@
 ``to_torch`` turns one of the JAX package's state NamedTuples —
 ``KmerTable``, ``SortedRun``, ``DBG``, ``EdgeGraph``, ``PatchTable``,
 ``ArcSet``, ``Contigs`` (with its nested ``ArcSet``), ``ContigIndex``,
-``ReadPlacements``, ``ConnSet``, with numpy (or any array-like) fields —
+``ReadPlacements``, ``ConnSet``, ``PackedTable``, ``LocalTables``, with
+numpy (or any array-like) fields —
 into the port's NamedTuple of the same name on a given device.
 ``to_numpy`` turns a port NamedTuple back into numpy arrays with the JAX
 package's dtypes, optionally wrapped in a given class (e.g. the JAX
-package's own).
+package's own).  ``gapfill_plain`` turns either package's
+``GapFillResult`` into plain lists.
 
 Dtype rules: uint32 k-mer/row lanes <-> int64 lanes; int32 counts and
 coverages stay int32; every other int32 array (node, edge and arc ids,
@@ -20,18 +22,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .graph import arcs, connections, contig_merge, dbg, unitigs
+from .graph import arcs, connections, contig_merge, dbg, gapfill, unitigs
 from .ops import dictionary
 from .stages import map as map_stage
 
 _TYPES = {cls.__name__: cls for cls in (
-    dictionary.KmerTable, dictionary.SortedRun, dbg.DBG,
+    dictionary.KmerTable, dictionary.SortedRun, dictionary.PackedTable,
+    gapfill.LocalTables, dbg.DBG,
     unitigs.EdgeGraph, arcs.PatchTable, arcs.ArcSet,
     contig_merge.Contigs, map_stage.ContigIndex, map_stage.ReadPlacements,
     connections.ConnSet)}
 _LANES = {"keys", "rows"}
 _COUNTS = {("KmerTable", "count"), ("KmerTable", "l_cov"),
            ("KmerTable", "r_cov"), ("SortedRun", "count"),
+           ("PackedTable", "count"), ("LocalTables", "count"),
            ("DBG", "out_cov")}
 _SCALARS = {"n", "n_edges"}
 
@@ -77,3 +81,10 @@ def to_numpy(nt, cls=None, nested=None):
             x = x.astype(np.int32)
         out.append(x)
     return (cls or type(nt))(*out)
+
+
+def gapfill_plain(res):
+    """A ``GapFillResult`` of either package -> (filled, fill_seq,
+    overlap) as lists of bool, str and int."""
+    return ([bool(x) for x in res.filled], [str(x) for x in res.fill_seq],
+            [int(x) for x in res.overlap])

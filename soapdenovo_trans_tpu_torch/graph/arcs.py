@@ -160,6 +160,26 @@ def _path_slots(pos_e, pair_e, barrier):
     return prev_val, flat_e, prev_ok & clean
 
 
+def leading_paths(to_ed: torch.Tensor, valid: torch.Tensor, rows: int,
+                  min_len: int):
+    """Per read of a ``thread_reads`` batch of ``rows`` reads, its
+    leading unbroken edge path: the path entries from the first on, up
+    to the first one that does not continue its predecessor (``valid``
+    false).  Returns (lengths (n,) of the paths of at least ``min_len``
+    edges, in read order; their edge rows (sum,), read-major) — what
+    the repsTie recorder writes (recordPathBin, reference
+    prlRead2path.c:507-573)."""
+    slots = to_ed.view(rows, -1)
+    entry = slots >= 0
+    rank = torch.cumsum(entry, 1) - 1  # index of an entry in its read
+    broken = entry & (rank >= 1) & ~valid.view(rows, -1)
+    first_break = torch.where(broken, rank, slots.shape[1]).min(1).values
+    n_run = torch.minimum(first_break, entry.sum(1))
+    rec = n_run >= min_len
+    take = entry & (rank < n_run[:, None]) & rec[:, None]
+    return n_run[rec], slots[take]
+
+
 def _fold_pair(f, t):
     """(from, to) edge ids in [-1, 2**31 - 2] -> one int64 in the same
     lexicographic order."""

@@ -311,7 +311,9 @@ def pinch(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet,
              "productive": 0, "seconds": 0.0}
     t0 = time.time()
     failed = torch.zeros_like(aset.from_ed, dtype=torch.bool)
-    while True:
+    # a graph without a single arc row has no bubble (and no candidate
+    # for ``_wave`` to shape its chains on)
+    while aset.from_ed.shape[0]:
         stats["waves"] += 1
         (cvg2, deleted2, nf, nt, nm, n_back, n_cmp, n_merged,
          overflow, cid_arc, fail_mark) = _wave(
@@ -337,5 +339,5 @@ def pinch(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet,
         # mergeable now — clear the mask (sized to the rebuilt ArcSet)
         failed = torch.zeros_like(aset.from_ed, dtype=torch.bool)
     stats["seconds"] = time.time() - t0
-    stats["s_per_wave"] = stats["seconds"] / stats["waves"]
+    stats["s_per_wave"] = stats["seconds"] / max(stats["waves"], 1)
     return eg, aset, stats

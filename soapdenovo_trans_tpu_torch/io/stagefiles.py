@@ -1,12 +1,12 @@
 """Stage-file writers (reference-compatible formats).
 
-A jax-free copy of ``write_kmer_freq``, ``write_pregraph_basic``,
-``write_pe_grads``, ``write_contig_fasta``, ``write_contig_index``,
-``write_placement_table``, ``write_gap_seq``, ``write_scaf_files`` and
-``write_scaf_statistics`` from ``soapdenovo_trans_tpu/io/stagefiles.py``,
-which imports the JAX package's ``ops/bits`` (and so ``jax``); the
-machine that runs the port on the GPU has no jax.  The contig writers
-take the port's tensors; the map and scaff writers take host arrays.
+A jax-free copy of ``soapdenovo_trans_tpu/io/stagefiles.py``, which
+imports the JAX package's ``ops/bits`` (and so ``jax``); the machine
+that runs the port on the GPU has no jax.  The contig writers take the
+port's tensors; the map and scaff writers take host arrays.  The
+per-record Python loops of the JAX package's ``PathRecorder`` and of its
+``-f`` writers are numpy here; the bytes are the same (the ``.gz``
+files' after decompression).
 
 ``_write_columns`` is numpy-only (the JAX package writes through pandas
 when it can import it; the GPU machine has no pandas) and gives the
@@ -15,9 +15,12 @@ bytes that pandas' ``to_csv`` gives for integer and string columns.
 
 from __future__ import annotations
 
+import gzip
 from typing import List
 
 import numpy as np
+
+from ..ops import bits
 
 
 def write_kmer_freq(path: str, histogram: np.ndarray) -> None:
@@ -127,11 +130,11 @@ def write_contig_index(path: str, contigs, k: int, perm) -> None:
 _ROWS_PER_WRITE = 1 << 20
 
 
-def _write_columns(path: str, header, cols) -> None:
+def _write_columns(path: str, header, cols, opener=open) -> None:
     """Tab-separated rows of equal-length 1-D columns behind an optional
     header line: each column is turned to text by numpy, the rows joined
     in C (about 1.5 s for 1.2M four-column rows on one CPU core)."""
-    with open(path, "w") as fh:
+    with opener(path, "wt") as fh:
         if header is not None:
             fh.write(header + "\n")
         n = len(cols[0])
@@ -149,6 +152,204 @@ def write_placement_table(path: str, readno, ctg, pos, orien) -> None:
     stage's single-read linking input (singleRead2connection,
     transcriptome.c:256)."""
     _write_columns(path, "read\tcontig\tpos", (readno, ctg, pos, orien))
+
+
+def write_read_information(path: str, readno, read_off, ctg, ctg_off,
+                           align_len, orien) -> None:
+    """.readInformation (reference prlRead2Ctg.c:575-588, -r/-R).
+    No header — the reference's consumer sscanfs every line
+    (getReadOnScaf, ReadTrace.c:69)."""
+    _write_columns(path, None,
+                   (readno, read_off, ctg, ctg_off, align_len, orien))
+
+
+class PathRecorder:
+    """repsTie outputs: binary `.path` (per recorded read, a 1-byte
+    edge count + that many uint32 1-based edge file ids) and the
+    `.markOnEdge` marker counts (saturating u8 per edge file id) —
+    recordPathBin, reference prlRead2path.c:507-573.  A read is
+    recorded when its leading unbroken edge path has >= 3 edges
+    (the reference's mixBuffer[start..start+2] nonzero check).
+
+    The reference v1.04 parses no flag that sets repsTie — its
+    `case 'R'` is commented out (pregraph.c:149-151) — so these files
+    are a documented superset behind -R, as in the JAX package."""
+
+    MIN_PATH = 3
+    MAX_IDS = 255  # a record's edge count is one byte
+
+    def __init__(self, path: str, file_id: np.ndarray, n_file: int):
+        self.fh = open(path, "wb")
+        self.file_id = file_id  # edge row -> 1-based file id
+        self.markers = np.zeros(n_file, np.int64)  # index = file id
+        self.n_reads = 0
+
+    def add_paths(self, lengths: np.ndarray, edges: np.ndarray) -> None:
+        """The leading paths of a read batch, in read order (what
+        ``graph/arcs.leading_paths`` returns): ``lengths`` (n,) edges
+        per recorded read, each >= MIN_PATH; ``edges`` (sum,) their edge
+        rows, read-major."""
+        ids = self.file_id[edges]
+        self.markers += np.bincount(ids, minlength=self.markers.shape[0])
+        kept = np.minimum(lengths, self.MAX_IDS)
+        rec_off = np.cumsum(1 + 4 * kept) - (1 + 4 * kept)
+        out = np.zeros(int((1 + 4 * kept).sum()), np.uint8)
+        out[rec_off] = kept
+        within = np.arange(ids.shape[0]) - np.repeat(
+            np.cumsum(lengths) - lengths, lengths)
+        keep = within < self.MAX_IDS
+        pos = np.repeat(rec_off + 1, lengths)[keep] + 4 * within[keep]
+        out[pos[:, None] + np.arange(4)] = \
+            ids[keep].astype("<u4").view(np.uint8).reshape(-1, 4)
+        self.fh.write(out.tobytes())
+        self.n_reads += int(lengths.shape[0])
+
+    def close(self) -> np.ndarray:
+        self.fh.close()
+        print(f"[pregraph] {int(self.markers.sum())} markers counted "
+              f"({self.n_reads} read paths)")
+        return np.minimum(self.markers, 255)
+
+
+def read_path_bin(path: str):
+    """Parse a binary `.path` file back into per-read 1-based edge
+    file-id arrays (inverse of PathRecorder; record layout matches the
+    reference's recordPathBin, prlRead2path.c:507-573)."""
+    out = []
+    with open(path, "rb") as fh:
+        data = fh.read()
+    pos = 0
+    while pos < len(data):
+        n = data[pos]
+        pos += 1
+        out.append(np.frombuffer(data, "<u4", count=n, offset=pos)
+                   .astype(np.int64))
+        pos += 4 * n
+    return out
+
+
+def write_mark_on_edge(path: str, markers: np.ndarray,
+                       n_edges_file: int) -> None:
+    """.markOnEdge: one saturating count per edge file id 1..num_ed
+    (reference prlRead2path.c:464-471)."""
+    m = np.zeros(n_edges_file + 1, np.int64)
+    n = min(m.shape[0], markers.shape[0])
+    m[:n] = np.minimum(markers[:n], 255)
+    with open(path, "w") as fh:
+        fh.write("".join(f"{x}\n" for x in m[1:].tolist()))
+
+
+class GapReads:
+    """The -f payload of the map stage: the reads dropped into gaps, in
+    file order.  ``codes`` is a (n, L) uint8 matrix of base codes, of
+    which row i holds ``lens[i]``."""
+
+    def __init__(self, readno, ctg0, pos, codes, lens):
+        self.readno = np.asarray(readno, np.int64)  # 1-based read number
+        self.ctg0 = np.asarray(ctg0, np.int64)      # 0-based contig row
+        self.pos = np.asarray(pos, np.int64)        # projected position
+        self.codes = np.asarray(codes, np.uint8)
+        self.lens = np.asarray(lens, np.int64)
+
+    def __len__(self) -> int:
+        return self.readno.shape[0]
+
+    @classmethod
+    def concat(cls, parts, width: int) -> "GapReads":
+        """Several GapReads in order; ``width`` is L of the result."""
+        def col(name):
+            vals = [getattr(p, name) for p in parts]
+            return np.concatenate(vals) if vals else np.zeros(0)
+        codes = np.full((sum(len(p) for p in parts), width), bits.BASE_N,
+                        np.uint8)
+        lo = 0
+        for p in parts:
+            codes[lo:lo + len(p), :p.codes.shape[1]] = p.codes
+            lo += len(p)
+        return cls(col("readno"), col("ctg0"), col("pos"), codes, col("lens"))
+
+
+def write_read_in_gap(path: str, reads: GapReads) -> None:
+    """.readInGap in the reference's BINARY format (output1read,
+    prlRead2Ctg.c:422-446; consumed by loadReads4gap/getRead1by1,
+    prlReadFillGap.c:158-197): per record int32 len, int32 contig id
+    (1-based), int32 projected pos, then len//4+1 tightString bytes
+    (2 bits/base, big-endian within each byte — seq.c:49-72)."""
+    n, width = reads.codes.shape
+    quads = -(-width // 4) + 1  # bytes of the longest record, and one
+    live = np.arange(width)[None, :] < reads.lens[:, None]
+    two_bit = np.zeros((n, 4 * quads), np.uint8)
+    two_bit[:, :width] = np.where(live, reads.codes & 3, 0)
+    two_bit = two_bit.reshape(n, quads, 4)
+    packed = (two_bit[:, :, 0] << 6) | (two_bit[:, :, 1] << 4) | \
+        (two_bit[:, :, 2] << 2) | two_bit[:, :, 3]
+    head = np.stack([reads.lens, reads.ctg0 + 1, reads.pos],
+                    1).astype("<i4").view(np.uint8).reshape(n, 12)
+    used = np.arange(quads)[None, :] < (reads.lens // 4 + 1)[:, None]
+    record = np.concatenate([head, packed], 1)
+    mask = np.concatenate([np.ones((n, 12), bool), used], 1)
+    with open(path, "wb") as fh:
+        fh.write(record[mask].tobytes())
+
+
+def write_pe_read_on_contig(path: str, rows: np.ndarray) -> None:
+    """.PEreadOnContig.gz (reference getPEreadOnContig, -f flag):
+    pairs with both ends mapped — 'readno ctg1 pos1 ctg2 pos2'."""
+    _write_columns(path, None, tuple(rows.T) if rows.shape[0] else ((),),
+                   opener=gzip.open)
+
+
+def write_short_read_in_gap(path: str, reads: GapReads) -> None:
+    """.shortreadInGap.gz (reference output1read, -f flag): the
+    sequences of gap-related reads for external gap fillers (SRkgf)."""
+    lut = np.frombuffer(b"ACTGN", np.uint8)
+    text = lut[np.minimum(reads.codes, bits.BASE_N)]
+    with gzip.open(path, "wt") as fh:
+        fh.write("".join(
+            f">read_{rn}\n{text[i, :ln].tobytes().decode()}\n"
+            for i, (rn, ln) in enumerate(zip(reads.readno.tolist(),
+                                             reads.lens.tolist()))))
+
+
+def read_scaf_gap(path: str, ctg_len_excl, k: int):
+    """Rebuild the transcript list from a .scaf_gap file (-S resume,
+    reference prlReadFillGap.c:1227 reparses .scaf_gap the same way).
+    Coordinates are in K-exclusive contig-length space and contig ids
+    are 1-based directed ids (outputOneTranscriptome,
+    transcriptome.c:1158-1219), so reference-written files load too.
+    GAP route lines are skipped (routes are re-derived when needed).
+    Returns a list of stages.scaff.Transcript."""
+    from ..stages.scaff import Transcript
+
+    transcripts = []
+
+    def flush():
+        if meta is not None:
+            # physical gap = coordinate gap (K-exclusive space) - K
+            gaps = [positions[i + 1] - (positions[i] + int(ctg_len_excl[c]))
+                    - k for i, c in enumerate(contigs[:-1])]
+            transcripts.append(Transcript(*meta, contigs, gaps))
+
+    contigs: List[int] = []
+    positions: List[int] = []
+    meta = None
+    with open(path) as fh:
+        for line in fh:
+            line = line.rstrip("\n")
+            if not line or line.startswith("GAP"):
+                continue
+            if line[0] == ">":
+                flush()
+                parts = line[1:].split()
+                _, lid, lidx = parts[3].split("_")  # Locus_<id>_<n>
+                meta = (int(lid), int(lidx), parts[4])
+                contigs, positions = [], []
+            else:
+                c, pos = line.split()[:2]
+                contigs.append(int(c) - 1)
+                positions.append(int(pos))
+    flush()
+    return transcripts
 
 
 def write_gap_seq(path: str, gap_report) -> None:
@@ -397,3 +598,66 @@ def write_scaf_statistics(prefix: str, known_genome_size: int = 0,
         avg = 1.0 * n_ctg / n_scaf if n_scaf else 0.0
         fo.write(f"Average_number_of_contigs_per_scaffold\t{avg:.1f}\n")
         fo.write("\n")
+
+
+def write_read_on_scaf(prefix: str, k: int, full_len, twin) -> None:
+    """.readOnScaf (reference getReadOnScaf, ReadTrace.c:41-160): join
+    .readInformation (read->contig alignments, map -r) with
+    .contigPosInscaff (contig->scaffold placements) into per-scaffold
+    read rows 'readID read_pos scafPos orient alignLength', then
+    append unplaced contigs >= 100bp as '>C<id>' singleton sections.
+
+    Faithful details: the first contig of a scaffold keeps raw
+    coordinates, later contigs subtract the K overlap (and trim
+    alignLength when the read starts inside the overlap); per-contig
+    rows emit in reverse file order (the reference builds a prepend
+    linked list and walks it); both twins are flagged placed.
+    """
+    full_len = np.asarray(full_len)
+    twin = np.asarray(twin)
+
+    by_ctg: dict = {}
+    with open(prefix + ".readInformation") as fh:
+        for line in fh:
+            p = line.split()
+            if len(p) < 6:
+                continue
+            by_ctg.setdefault(int(p[2]), []).append(
+                (p[0], int(p[1]), int(p[3]), int(p[4]), p[5]))
+
+    placed = set()
+    out: List[str] = []
+    with open(prefix + ".contigPosInscaff") as fh:
+        is_first = False
+        for line in fh:
+            if line.startswith(">"):
+                out.append(line)
+                is_first = True
+                continue
+            p = line.split()
+            if not p:
+                continue
+            cid, cstart, orient = int(p[0]), int(p[1]), p[2]
+            placed.add(cid)
+            placed.add(int(twin[cid - 1]) + 1)
+            for rid, rpos, cpos, alen, ro in reversed(by_ctg.get(cid, [])):
+                if is_first:
+                    spos, salen = cstart + cpos, alen
+                else:
+                    spos = cstart + cpos - k
+                    salen = alen - k + cpos if cpos < k else alen
+                so = "+" if ro == orient else "-"
+                out.append(f"{rid}\t{rpos}\t{spos}\t{so}\t{salen}\n")
+            is_first = False
+
+    # singleton sections: big unplaced contigs, ascending id
+    for cid in range(1, full_len.shape[0] + 1):
+        if int(full_len[cid - 1]) < 100 or cid in placed:
+            continue
+        out.append(f">C{cid}\n")
+        placed.add(cid)
+        placed.add(int(twin[cid - 1]) + 1)
+        for rid, rpos, cpos, alen, ro in reversed(by_ctg.get(cid, [])):
+            out.append(f"{rid}\t{rpos}\t{cpos}\t{ro}\t{alen}\n")
+    with open(prefix + ".readOnScaf", "w") as fh:
+        fh.write("".join(out))

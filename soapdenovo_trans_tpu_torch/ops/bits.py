@@ -245,6 +245,31 @@ def encode_seq(s: str) -> np.ndarray:
     return _CHAR2CODE[np.frombuffer(s.encode("ascii"), dtype=np.uint8)]
 
 
+def decode_seq(codes) -> str:
+    """(len,) base codes -> ASCII string (4 -> 'N')."""
+    lut = np.frombuffer(b"ACTGN", dtype=np.uint8)
+    return bytes(lut[np.asarray(codes, dtype=np.uint8)]).decode("ascii")
+
+
+def kmer_from_string(s: str) -> np.ndarray:
+    """String of length K -> (W,) int64 lanes (host side); N and unknown
+    characters enter as code 4, as in the JAX package."""
+    w = words_for_k(len(s))
+    val = 0
+    for ch in s:
+        val = (val << 2) | int(_CHAR2CODE[ord(ch)])
+    return np.array([(val >> (32 * (w - 1 - i))) & LANE_MASK
+                     for i in range(w)], dtype=np.int64)
+
+
+_COMPLEMENT = str.maketrans("ACGTN", "TGCAN")
+
+
+def revcomp_str(s: str) -> str:
+    """Host-side reverse complement over ACGT/N strings."""
+    return s.upper().translate(_COMPLEMENT)[::-1]
+
+
 def kmer_to_string(km, k: int) -> str:
     """(W,) lanes -> string of length K (host side)."""
     val = 0

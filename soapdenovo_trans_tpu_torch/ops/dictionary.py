@@ -1,7 +1,8 @@
 """Sorted k-mer dictionary: the run path of the k-mer "hash table".
 
-Port of ``soapdenovo_trans_tpu/ops/dictionary.py`` (counting run path
-and lookup only).  The streaming unit is a PACKED ROW,
+Port of ``soapdenovo_trans_tpu/ops/dictionary.py``: the counting run
+path (``SortedRun``), the deduplicated accumulation format
+(``PackedTable``) and lookup.  The streaming unit is a PACKED ROW,
 ``key<<7 | 1<<6 | prev<<3 | next`` in ``ceil((2K+7)/32)`` lanes (2 for
 K <= 28): the k-mer with its left/right base context in one sortable
 integer.  A build unit is one chop + pack + sort (a ``SortedRun``);
@@ -64,6 +65,22 @@ class SortedRun(NamedTuple):
         return self.rows.shape[0]
 
 
+class PackedTable(NamedTuple):
+    """Deduplicated (k-mer, context) rows: the accumulation format of
+    the batch-by-batch build (``build_packed`` + ``merge_packed`` +
+    ``finalize``).  Rows [0, n) are distinct packed rows in ascending
+    order with their multiplicities; an empty table holds one sentinel
+    row.  Every build and merge reads ``n`` on the host."""
+
+    rows: torch.Tensor   # (cap, WP) int64 lanes, ascending
+    count: torch.Tensor  # (cap,) int32 multiplicity of each distinct row
+    n: int               # number of real rows
+
+    @property
+    def capacity(self) -> int:
+        return self.rows.shape[0]
+
+
 def _is_sentinel(rows: torch.Tensor) -> torch.Tensor:
     return (rows == SENTINEL).all(-1)
 
@@ -119,16 +136,26 @@ def sorted_run_from_reads(seqs: torch.Tensor, lengths: torch.Tensor,
     return SortedRun(rows, cnt, cnt.sum(dtype=torch.int64))
 
 
-def merge_runs(a: SortedRun, b: SortedRun) -> SortedRun:
-    """Combine two sorted runs without dedup compaction.  Two-lane rows
-    (K <= 28) go through the merge-path kernel; wider rows through
-    concat + sort, as in the JAX package.  No host sync."""
+def _concat_sort(a, b):
+    """The plain merge of two runs or tables: concatenate and sort."""
+    return sort_rows(torch.cat([a.rows, b.rows]),
+                     torch.cat([a.count, b.count]))
+
+
+def _merge_rows(a, b):
+    """(rows, count) of two sorted runs or tables merged, duplicates
+    kept.  Two-lane rows (K <= 28) go through the merge-path kernel;
+    wider rows through concat + sort, as in the JAX package."""
     if a.rows.shape[-1] == 2:
-        rows, count = merge_path.merge_sorted_rows(
+        return merge_path.merge_sorted_rows(
             a.rows, a.count, b.rows, b.count, a.n, b.n)
-    else:
-        rows, count = sort_rows(torch.cat([a.rows, b.rows]),
-                                torch.cat([a.count, b.count]))
+    return _concat_sort(a, b)
+
+
+def merge_runs(a: SortedRun, b: SortedRun) -> SortedRun:
+    """Combine two sorted runs without dedup compaction.  No host
+    sync."""
+    rows, count = _merge_rows(a, b)
     return SortedRun(rows, count, a.n + b.n)
 
 
@@ -230,6 +257,69 @@ def finalize_run(run: SortedRun, k: int) -> KmerTable:
     coverage split at compacted size, then split contexts."""
     c = collapse_run(run)
     return _fit_table(*_finalize(c.rows, c.count, k))
+
+
+def _packed(rows: torch.Tensor, count: torch.Tensor) -> PackedTable:
+    """Sorted rows with counts -> PackedTable (dedup, one host sync)."""
+    rows, count = _dedup_sorted(rows, count)
+    return PackedTable(_pad_to_one(rows, SENTINEL), _pad_to_one(count, 0),
+                       rows.shape[0])
+
+
+def build_packed(stream: kmer.KmerStream, k: int) -> PackedTable:
+    """One batch of the batch-by-batch build: KmerStream -> PackedTable
+    (the per-batch analogue of put_kmerset's insert loop,
+    src/newhash.c:411-462)."""
+    rows, = sort_rows(pack_stream(
+        stream.kmers, stream.prev, stream.next, stream.valid, k))
+    return _packed(rows, (~_is_sentinel(rows)).to(torch.int32))
+
+
+def build_packed_from_reads(seqs: torch.Tensor, lengths: torch.Tensor,
+                            k: int) -> PackedTable:
+    """chop -> pack -> sort -> dedup of one read batch."""
+    return build_packed(kmer.chop_reads(seqs, lengths, k), k)
+
+
+def build_packed_from_reads_many(batches, k: int) -> list:
+    """``build_packed_from_reads`` over several (seqs, lengths)
+    batches."""
+    return [build_packed_from_reads(s, l, k) for s, l in batches]
+
+
+def merge_packed(a: PackedTable, b: PackedTable) -> PackedTable:
+    """Combine two PackedTables: merge + dedup (equal rows summed)."""
+    return _packed(*_merge_rows(a, b))
+
+
+def merge_packed_plain(a: PackedTable, b: PackedTable) -> PackedTable:
+    """``merge_packed`` through concat + sort whatever the row width and
+    the device: what the kernel path is held against."""
+    return _packed(*_concat_sort(a, b))
+
+
+def finalize(pt: PackedTable, k: int) -> KmerTable:
+    """Accumulated PackedTable -> KmerTable (once per counting phase)."""
+    return _fit_table(*_finalize(pt.rows, pt.count, k))
+
+
+def merge_finalize(a: PackedTable, b: PackedTable, k: int) -> KmerTable:
+    """The last merge fused with finalize: the dedup between them is
+    skipped, since ``_finalize`` sums per key and so absorbs duplicate
+    (k-mer, context) rows."""
+    return _fit_table(*_finalize(*_merge_rows(a, b), k))
+
+
+def merge_finalize_plain(a: PackedTable, b: PackedTable,
+                         k: int) -> KmerTable:
+    """``merge_finalize`` through concat + sort (see
+    ``merge_packed_plain``)."""
+    return _fit_table(*_finalize(*_concat_sort(a, b), k))
+
+
+def build(stream: kmer.KmerStream, k: int) -> KmerTable:
+    """Single-shot build: KmerStream -> KmerTable (small inputs)."""
+    return finalize(build_packed(stream, k), k)
 
 
 def _fold_keys(lanes: torch.Tensor) -> torch.Tensor:

@@ -51,6 +51,9 @@ class ContigResult:
         default_factory=dict)
     tourbus: Dict[str, float] = dataclasses.field(default_factory=dict)
     laps: int = 0
+    # repeat edges split before the stage by ``contig -R`` (None: not run;
+    # its seconds are ``phase_seconds["split"]``)
+    reps_split: Optional[int] = None
 
 
 def _as_edgegraph(ctg: contig_merge.Contigs) -> unitigs.EdgeGraph:

@@ -3,12 +3,11 @@
 A host copy of ``soapdenovo_trans_tpu/stages/pelinks.py``: that module
 is numpy host code, but it belongs to the JAX package, which the port
 may not import (the machine that runs the port on the GPU has no jax).
-Three changes: the placement tables are parsed by numpy alone (the JAX
+Two changes: the placement tables are parsed by numpy alone (the JAX
 package parses them with pandas when it can import it; the GPU machine
-has no pandas); ``build_connections`` takes the port's contigs and
+has no pandas); and ``build_connections`` takes the port's contigs and
 aggregates the candidate links with the port's
-``connections.aggregate`` on the contigs' device; and it leaves out the
-per-read placements that only -F gap filling reads (not ported yet).
+``connections.aggregate`` on the contigs' device.
 
 The reference scaffold stage is resumable from map outputs alone:
 loadPEgrads reads `.peGrads` (src/attachPEinfo.c:63-168), PE2Links
@@ -143,8 +142,10 @@ def build_pe_candidates(prefix: str, length_ex: np.ndarray,
     """PE2Links over `.readOnContig`: per-grad consecutive-readno
     pairing -> symmetric link candidates + per-grad .links rows.
 
-    Returns (f, t, gap_phys, valid, links_by_grad, report_lines) with
-    contig ids as 0-based rows."""
+    Returns (f, t, gap_phys, valid, links_by_grad, report_lines,
+    read_ctg, read_pos) with contig ids as 0-based rows; read_ctg and
+    read_pos are each read's placement (int32, -1 / 0 when unplaced;
+    None when no read is placed), for gap filling and the read tables."""
     readno, ctg1, pos = _load_rows(prefix + ".readOnContig")
     n_ctg = length_ex.shape[0]
     ctg0 = (ctg1 - 1).astype(np.int64)
@@ -153,6 +154,14 @@ def build_pe_candidates(prefix: str, length_ex: np.ndarray,
     # attachPEinfo.c:387-390)
     ok_row &= twin[np.clip(ctg0, 0, n_ctg - 1)] != ctg0
     readno, ctg0, pos = readno[ok_row], ctg0[ok_row], pos[ok_row]
+
+    read_ctg = read_pos = None
+    if readno.size:
+        n_reads = int(readno.max())
+        read_ctg = np.full(n_reads, -1, np.int32)
+        read_pos = np.zeros(n_reads, np.int32)
+        read_ctg[readno - 1] = ctg0
+        read_pos[readno - 1] = pos
 
     f_all, t_all, g_all = [], [], []
     links_by_grad = []
@@ -227,7 +236,7 @@ def build_pe_candidates(prefix: str, length_ex: np.ndarray,
         t = np.full(1, -1, np.int32)
         g = np.zeros(1, np.int32)
     v = f >= 0
-    return f, t, g, v, links_by_grad, report
+    return f, t, g, v, links_by_grad, report, read_ctg, read_pos
 
 
 def build_se_candidates(prefix: str, length_ex: np.ndarray,
@@ -296,7 +305,10 @@ def weak_pe_report(grads: List[PEGrad], links_by_grad) -> List[str]:
 
 def build_connections(prefix: str, ctg, k: int, min_unique_len: int):
     """Full scaff-side link rebuild from files.  Returns (ConnSet on the
-    contigs' device, ins_size_var)."""
+    contigs' device, extras): extras carries the read placements for gap
+    filling and the read tables (read_ctg / read_pos 0-based-row arrays,
+    read_ins the insert size of each read's library), n_reads and
+    ins_size_var."""
     import torch
 
     from ..graph import connections
@@ -307,8 +319,8 @@ def build_connections(prefix: str, ctg, k: int, min_unique_len: int):
     full_len = length_ex + k
     unique = (np.arange(n_rows) < ctg.n) & (full_len >= min_unique_len)
 
-    grads, _, _ = load_pe_grads(prefix)
-    pf, pt, pg, pv, links_by_grad, report = \
+    grads, n_reads, _ = load_pe_grads(prefix)
+    pf, pt, pg, pv, links_by_grad, report, read_ctg, read_pos = \
         build_pe_candidates(prefix, length_ex, twin, k, grads)
     for line in report:
         print(f"[scaff] {line}")
@@ -325,6 +337,14 @@ def build_connections(prefix: str, ctg, k: int, min_unique_len: int):
         dev([pf, sf]), dev([pt, st]), dev([pg, sg]),
         dev([np.zeros(pf.shape[0], bool), np.ones(sf.shape[0], bool)]),
         dev([pv, sv]))
+    read_ins = None
+    if read_ctg is not None and grads:
+        bounds = np.asarray([g_.bound for g_ in grads], np.int64)
+        ins_arr = np.asarray([g_.insert_s for g_ in grads], np.int64)
+        rn = np.arange(1, read_ctg.shape[0] + 1, dtype=np.int64)
+        gi = np.clip(np.searchsorted(bounds, rn, side="left"),
+                     0, len(grads) - 1)
+        read_ins = ins_arr[gi].astype(np.int32)
     # ins_size_var as Links2Scaf sets it per grad in ascending insert
     # order (orderContig.c:4255-4269) — the largest grad's value is
     # what linearization sees
@@ -336,4 +356,6 @@ def build_connections(prefix: str, ctg, k: int, min_unique_len: int):
             ins_size_var = 30
         else:
             ins_size_var = 20
-    return conn, ins_size_var
+    return conn, {"read_ctg": read_ctg, "read_pos": read_pos,
+                  "read_ins": read_ins, "n_reads": n_reads,
+                  "ins_size_var": ins_size_var}

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -42,6 +42,8 @@ class PregraphResult:
     k: int
     phase_seconds: Dict[str, float] = dataclasses.field(
         default_factory=dict)
+    # read paths written to .path by ``pregraph -R`` (None: not recorded)
+    path_reads: Optional[int] = None
 
 
 def _iter_build_units(batches, k: int, target_rows: int):
@@ -117,11 +119,18 @@ def _sync(device: torch.device) -> None:
 
 
 def run_pregraph(batch_iter_factory, k: int, device: torch.device,
-                 low_freq_cutoff: int = 0,
-                 clip_tips: bool = True) -> PregraphResult:
+                 low_freq_cutoff: int = 0, clip_tips: bool = True,
+                 path_recorder_factory=None) -> PregraphResult:
     """batch_iter_factory: zero-arg callable returning a fresh iterator
     of (codes, lengths, lib) batches — called twice (two read passes,
-    like the reference).  Phase wall times land in ``phase_seconds``."""
+    like the reference).  Phase wall times land in ``phase_seconds``.
+
+    path_recorder_factory: optional callable(edges) -> recorder with
+    ``MIN_PATH`` and ``add_paths(lengths, edges)``, fed every read's
+    leading edge path in read order — the repsTie .path hook (reference
+    recordPathBin, prlRead2path.c:507); its seconds (path extraction on
+    the device, the copy to the host and the recorder) are the
+    ``record`` phase, a part of ``thread``."""
     phases = {}
 
     def lap(name, t0):
@@ -147,14 +156,23 @@ def run_pregraph(batch_iter_factory, k: int, device: torch.device,
 
     t0 = time.time()
     patch = arcs_mod.build_patch(edges, table, k)
+    recorder = path_recorder_factory(edges) if path_recorder_factory \
+        else None
     forest = arcs_mod.ArcForest(edges.twin)
     for codes, lengths, _lib in batch_iter_factory():
         for off in range(0, codes.shape[0], THREAD_ROWS):
             seqs, lens = _upload(codes[off:off + THREAD_ROWS],
                                  lengths[off:off + THREAD_ROWS], device)
-            forest.insert(arcs_mod.count_arcs(
-                *arcs_mod.thread_reads(seqs, lens, table, edges, patch, k),
-                edges.twin))
+            f, t, v = arcs_mod.thread_reads(seqs, lens, table, edges,
+                                            patch, k)
+            if recorder is not None:
+                tr = time.time()
+                n_run, path = arcs_mod.leading_paths(
+                    t, v, seqs.shape[0], recorder.MIN_PATH)
+                recorder.add_paths(n_run.cpu().numpy(), path.cpu().numpy())
+                phases["record"] = phases.get("record", 0.0) + \
+                    time.time() - tr
+            forest.insert(arcs_mod.count_arcs(f, t, v, edges.twin))
     aset = forest.finish()
     print(f"[pregraph] {aset.n} preArcs ({lap('thread', t0):.1f}s)")
     return PregraphResult(table, edges, patch, aset, k,

@@ -26,14 +26,13 @@ numpy host code, but it belongs to the JAX package, which the port may
 not import (the machine that runs the port on the GPU has no jax).
 ``run_scaff`` reads the port's device tensors (contigs, connections,
 contig arcs) to the host once, at its start, and decodes the contig
-sequences with the port's ``contig_merge.contig_sequences``.  Left out
-until the flags that need them are ported: -F gap filling
-(``collect_gap_reads`` and the fill branches of ``run_scaff``, which
-call the JAX package's ``graph/gapfill``), -S resume from .scaf_gap,
-the -r/-R read tables (``record_membership``, ``reads_on_scaffolds``,
-``rpkm_table``), and the JAX package's test-only dict pipeline
+sequences with the port's ``contig_merge.contig_sequences``; -F gap
+filling runs the port's ``graph/gapfill`` on the contigs' device.
+``collect_gap_reads`` groups the placed reads by contig once, where the
+JAX package scans them once per junction side; each gap gets the same
+reads in the same order.  The JAX package's test-only dict pipeline
 (``delete_weak``, ``get_loci``, ``_oriented_locus``,
-``transcript_sequences``).
+``transcript_sequences``) has no copy here.
 """
 
 from __future__ import annotations
@@ -57,6 +56,15 @@ class ScaffParams:
     max_step: int = 5           # all-paths enumeration bound (contigs)
     max_routes: int = 10        # path count cap per locus
     ins_size_var: int = 20      # gap tolerance (Links2Scaf :4251-4275)
+    gap_len_diff: int = 50      # -G GLDiff: allowed gap-size error for
+    #                             gap filling (reference global.h:107)
+    fill_gaps: bool = False     # -F: local assembly of gap sequence
+    gap_read_window: int = 300  # placement window near a junction for
+    #                             gap-read recruitment (readInGap)
+    max_reads_per_gap: int = 128  # pairs recruited per junction; the
+    #                               deep-gap coverage comes from
+    #                               unmapped mates of distal pairs, so
+    #                               the cap must span a full insert
 
 
 @dataclasses.dataclass
@@ -82,9 +90,11 @@ class ScaffResult:
     # junction id -> intermediate route contigs (the .scaf_gap GAP
     # lines, transcriptome.c:1195-1205 + output1gap)
     routes: Dict[int, List[int]] = dataclasses.field(default_factory=dict)
-    # junction id -> rendered N-run length
+    # junction id -> rendered N-run length (absent when spliced/filled)
     n_runs: Dict[int, int] = dataclasses.field(default_factory=dict)
-    # host seconds of the structure and render passes
+    # seconds of the structure and render passes and, under -F, of
+    # collect (gap-read recruitment), fill (all of gap filling) and
+    # fill_<part> (the parts of ``gapfill.fill_gaps``)
     phase_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
     connections: int = 0  # rows of the connection set it was built from
 
@@ -574,73 +584,237 @@ def _host(nt):
                       for x in nt))
 
 
+def collect_gap_reads(junctions, read_ctg, read_pos, batch_factory,
+                      twin, full_len, window: int, cap: int,
+                      read_ins=None) -> List[List[np.ndarray]]:
+    """Recruit reads near each junction for local gap assembly.
+
+    The reference prepares `.readInGap` during map (getReadIngap,
+    prlRead2Ctg.c:447): a read whose *projected mate* falls past a
+    contig end is dropped into that gap.  Placements here are already
+    orientation-resolved onto directed contig rows, so for an FR pair
+    the mate of a read at pos p on row c spans [p+ins-rl, p+ins) in
+    row-c coordinates — if that window crosses the row's end, the mate
+    lies in the junction gap.  Two recruitment tiers per junction
+    (c1, c2, gap), ``cap // 2`` reads each:
+
+    * mate-projection: reads on a 'tail' side whose projected mate
+      overlaps the gap, shallowest first (these recover the gap's
+      interior — the mates themselves are usually unmappable);
+    * self-proximity: reads placed closest to the junction (these
+      anchor the walk at the flanks).
+
+    The selected reads and their PE mates (pairs are adjacent in the
+    stream) are picked up in one pass over ``batch_factory()``, the
+    mapping read stream in the order the placements were numbered.
+    Returns, per junction, the reads' uint8 code rows in ascending read
+    number."""
+    read_ctg = np.asarray(read_ctg)
+    read_pos = np.asarray(read_pos)
+    ins = None if read_ins is None else np.asarray(read_ins)
+    # reads grouped by contig, ascending read number within a contig
+    placed = np.flatnonzero(read_ctg >= 0)
+    by_ctg = placed[np.argsort(read_ctg[placed], kind="stable")]
+    ctg_sorted = read_ctg[by_ctg]
+    take = cap // 2
+    want_read, want_slot = [], []
+    for s, (c1, c2, gap) in enumerate(junctions):
+        near: List[Tuple[int, int]] = []   # (dist to junction, read)
+        mates: List[Tuple[int, int]] = []  # (projected depth, read)
+        for c, tail in ((c1, True), (int(twin[c1]), False),
+                        (c2, False), (int(twin[c2]), True)):
+            ln = int(full_len[c])
+            rows = by_ctg[np.searchsorted(ctg_sorted, c):
+                          np.searchsorted(ctg_sorted, c, side="right")]
+            pos = read_pos[rows]
+            keep = pos >= ln - window if tail else pos <= window
+            rows, pos = rows[keep], pos[keep]
+            near.extend(zip(((ln - pos) if tail else pos).tolist(),
+                            rows.tolist()))
+            if tail and ins is not None:
+                mate_end = pos + ins[rows]
+                in_gap = (ins[rows] > 0) & (mate_end > ln) & \
+                    (mate_end <= ln + max(gap, 0) + window)
+                mates.extend(zip((mate_end[in_gap] - ln).tolist(),
+                                 rows[in_gap].tolist()))
+        near.sort()
+        mates.sort()
+        picked = {i for _d, i in mates[:take] + near[:take]}
+        picked |= {i ^ 1 for i in picked}  # the PE mate is stream-adjacent
+        want_read.extend(picked)
+        want_slot.extend([s] * len(picked))
+    gap_reads: List[List[np.ndarray]] = [[] for _ in junctions]
+    if not want_read:
+        return gap_reads
+    want_read = np.asarray(want_read, np.int64)
+    want_slot = np.asarray(want_slot, np.int64)
+    order = np.lexsort((want_slot, want_read))
+    want_read, want_slot = want_read[order], want_slot[order]
+    base = 0  # dense number of the batch's first real read
+    for codes, lens, _li in batch_factory():
+        lens = np.asarray(lens)
+        real = np.flatnonzero(lens > 0)
+        if real.size == 0:
+            continue
+        lo, hi = np.searchsorted(want_read, (base, base + real.size))
+        if hi > lo:
+            local = real[want_read[lo:hi] - base]
+            picked = np.asarray(codes)[local].astype(np.uint8)
+            for row, ln, s in zip(picked, lens[local].tolist(),
+                                  want_slot[lo:hi].tolist()):
+                gap_reads[s].append(row[:ln])
+        base += real.size
+    return gap_reads
+
+
 def run_scaff(contigs, conn, k: int, table,
-              params: Optional[ScaffParams] = None, ctg_arcs=None
+              params: Optional[ScaffParams] = None, ctg_arcs=None,
+              gap_read_source=None, preset_transcripts=None
               ) -> ScaffResult:
-    """Full scaffold stage without -F: returns a ScaffResult.
+    """Full scaffold stage: returns a ScaffResult.
 
     .recs: list of (header, sequence) for .scafSeq — transcripts first,
     then leftover contigs >= 100bp as '>C<row>' singletons (reference
-    prlReadFillGap.c:1453-1461).  Every junction renders as an N run
-    (the CONNECT gap, min 1) and the next contig trimmed by K; unique
-    arc routes are found for the .scaf_gap GAP lines only, as in the
-    reference without fillGap (prlReadFillGap.c:1347-1356).  The
-    gap_report (.gapSeq payload) is empty without -F."""
-    from ..graph import contig_merge
+    prlReadFillGap.c:1453-1461).
+
+    gap_read_source: optional (read_ctg, read_pos, batch_factory[,
+    read_ins]) for -F local gap assembly (params.fill_gaps);
+    batch_factory re-streams the mapping read stream in the order the
+    placements were numbered.
+
+    gap_report: list of (scaffold_index, junction_index, method,
+    sequence) for filled gaps — the .gapSeq payload.
+
+    preset_transcripts: skip structure building and reuse an existing
+    transcript list (-S "scaffold structure exists", scaffold.c:47 —
+    resume from .scaf_gap straight into gap closing)."""
+    from ..graph import contig_merge, gapfill
 
     t0 = time.time()
+    seconds: Dict[str, float] = {}
     params = params or ScaffParams()
     n_ctg = contigs.n
     twin = contigs.twin.cpu().numpy()
     full_len = contigs.length.cpu().numpy() + k
-    unique = np.zeros(full_len.shape[0], bool)
-    unique[:n_ctg] = full_len[:n_ctg] >= params.min_unique_len
-    transcripts = build_structure(
-        _host(conn), twin, full_len, unique, contigs.cvg.cpu().numpy(),
-        params, k)
+    if preset_transcripts is not None:
+        transcripts = preset_transcripts
+    else:
+        unique = np.zeros(full_len.shape[0], bool)
+        unique[:n_ctg] = full_len[:n_ctg] >= params.min_unique_len
+        transcripts = build_structure(
+            _host(conn), twin, full_len, unique, contigs.cvg.cpu().numpy(),
+            params, k)
     t1 = time.time()
+    seconds["structure"] = t1 - t0
 
     seqs = contig_merge.contig_sequences(contigs, table, k)
     used = np.zeros(full_len.shape[0], bool)
     router = ArcRouter(_host(ctg_arcs), full_len, k) \
         if ctg_arcs is not None else None
 
-    # unique arc routes through the contig graph, one per junction
-    # (the .scaf_gap GAP lines, transcriptome.c:1195-1205)
+    # junctions: (c1, c2, gap), numbered across the transcripts
+    juncs = [(tr.contigs[ji], tr.contigs[ji + 1], tr.gaps[ji])
+             for tr in transcripts for ji in range(len(tr.contigs) - 1)]
+
+    # strategy 1: unique arc route through the contig graph.  Routes
+    # are found for every junction (the reference writes them as GAP
+    # lines in .scaf_gap regardless of -F, transcriptome.c:1195-1205);
+    # their SEQUENCE is spliced only under -F — without fillGap the
+    # reference ignores GAP lines entirely and renders Ns
+    # (prlReadFillGap.c:1347-1356: procGap is called only `if (fillGap)`).
     routes: Dict[int, List[int]] = {}
-    jid = 0
-    for tr in transcripts:
-        for ji in range(len(tr.contigs) - 1):
-            r = router.find_route(tr.contigs[ji], tr.contigs[ji + 1],
-                                  tr.gaps[ji], params.ins_size_var) \
-                if router is not None else None
+    if router is not None:
+        for jid, (c1, c2, gap) in enumerate(juncs):
+            r = router.find_route(c1, c2, gap, params.ins_size_var)
             if r is not None:
                 routes[jid] = r
-            jid += 1
+    splice_routes = routes if params.fill_gaps else {}
 
+    # strategies 2+3: overlap merge / read-local assembly (-F)
+    fill: Dict[int, Tuple[str, str, int]] = {}  # jid -> (kind, seq, ov)
+    pending = [jid for jid in range(len(juncs)) if jid not in splice_routes]
+    if pending and params.fill_gaps:
+        tc = time.time()
+        if gap_read_source is not None:
+            read_ctg, read_pos, batch_factory = gap_read_source[:3]
+            greads = collect_gap_reads(
+                [juncs[jid] for jid in pending], read_ctg, read_pos,
+                batch_factory, twin, full_len, params.gap_read_window,
+                params.max_reads_per_gap,
+                read_ins=gap_read_source[3] if len(gap_read_source) > 3
+                else None)
+        else:
+            greads = [[] for _ in pending]
+        tf = time.time()
+        res = gapfill.fill_gaps(
+            [(seqs[juncs[jid][0]], seqs[juncs[jid][1]], int(juncs[jid][2]))
+             for jid in pending], greads, k, contigs.length.device,
+            tol=params.gap_len_diff)
+        seconds.update(collect=tf - tc, fill=time.time() - tf,
+                       **{f"fill_{name}": sec
+                          for name, sec in res.phase_seconds.items()})
+        for slot, jid in enumerate(pending):
+            if res.filled[slot]:
+                ov = int(res.overlap[slot])
+                fill[jid] = ("overlap", "", ov) if ov > 0 else \
+                    ("localasm", res.fill_seq[slot], 0)
+
+    # --- splice sequences ---
+    t2 = time.time()
     recs: List[Tuple[str, str]] = []
+    gap_report: List[Tuple[int, int, str, str]] = []
     placements: List[List[Tuple[int, int, int, str]]] = []
     n_runs: Dict[int, int] = {}
+    n_routed = n_filled = 0
     jid = 0
+
+    def strand(c):
+        return "+" if c <= int(twin[c]) else "-"
+
     for idx, tr in enumerate(transcripts, start=1):
         c0 = tr.contigs[0]
         parts = [seqs[c0]]
         pos = len(seqs[c0])
-        place = [(c0, 0, pos, "+" if c0 <= int(twin[c0]) else "-")]
+        place = [(c0, 0, pos, strand(c0))]
         used[c0] = True
+
+        def put(c, cut):
+            """Append contig c without its first ``cut`` bases."""
+            nonlocal pos
+            parts.append(seqs[c][cut:])
+            place.append((c, pos, len(seqs[c]) - cut, strand(c)))
+            pos += len(seqs[c]) - cut
+
         for ji, c2 in enumerate(tr.contigs[1:]):
-            # gapN Ns (the CONNECT gap, min 1) + the next contig trimmed
-            # by cutHead=K — reference outputScafSeq with
-            # initiateCtgInScaf's cutHead=overlaplen default
-            # (prlReadFillGap.c:265-270,637-656)
-            gap_n = max(tr.gaps[ji] + k, 1)
-            parts.append("N" * gap_n)
-            pos += gap_n
-            n_runs[jid] = gap_n
-            parts.append(seqs[c2][k:])
-            place.append((c2, pos, len(seqs[c2]) - k,
-                          "+" if c2 <= int(twin[c2]) else "-"))
-            pos += len(seqs[c2]) - k
+            if jid in splice_routes:
+                for x in splice_routes[jid]:
+                    put(x, k)
+                put(c2, k)
+                n_routed += 1
+                gap_report.append((idx, ji, "route", "".join(
+                    seqs[x][k:] for x in splice_routes[jid])))
+            elif jid in fill:
+                kind, fseq, ov = fill[jid]
+                if kind == "overlap":
+                    put(c2, ov)
+                else:
+                    parts.append(fseq)
+                    pos += len(fseq)
+                    put(c2, 0)
+                n_filled += 1
+                gap_report.append((idx, ji, kind, fseq))
+            else:
+                # no fill: gapN Ns (the CONNECT gap, min 1) + the next
+                # contig trimmed by cutHead=K — reference outputScafSeq
+                # with initiateCtgInScaf's cutHead=overlaplen default
+                # (prlReadFillGap.c:265-270,637-656); without -F,
+                # procGap never runs so every junction renders this way
+                # (prlReadFillGap.c:1347-1356)
+                gap_n = max(tr.gaps[ji] + k, 1)
+                parts.append("N" * gap_n)
+                pos += gap_n
+                n_runs[jid] = gap_n
+                put(c2, k)
             used[c2] = True
             jid += 1
         seq = "".join(parts)
@@ -648,6 +822,9 @@ def run_scaff(contigs, conn, k: int, table,
                   f"Locus_{tr.locus}_{tr.index} {tr.kind}")
         recs.append((header, seq))
         placements.append(place)
+    if n_routed or n_filled:
+        print(f"[scaff] gaps closed: {n_routed} arc routes, "
+              f"{n_filled} overlap/local-asm of {len(juncs)}")
 
     # leftover singletons (one per twin pair)
     for c in range(n_ctg):
@@ -657,10 +834,9 @@ def run_scaff(contigs, conn, k: int, table,
             continue
         recs.append((f"C{c}", seqs[c]))
         used[c] = used[int(twin[c])] = True
-    return ScaffResult(recs, transcripts, scaf_stats(recs), [],
-                       placements, routes, n_runs,
-                       {"structure": t1 - t0, "render": time.time() - t1},
-                       conn.n)
+    seconds["render"] = time.time() - t2
+    return ScaffResult(recs, transcripts, scaf_stats(recs), gap_report,
+                       placements, routes, n_runs, seconds, conn.n)
 
 
 def scaf_stats(recs: List[Tuple[str, str]]) -> Dict[str, float]:
@@ -745,3 +921,49 @@ class ArcRouter:
         if len(routes) == 1:
             return routes[0]
         return None
+
+
+def record_membership(recs: List[Tuple[str, str]],
+                      transcripts: List[Transcript],
+                      twin, n_ctg: int) -> Dict[int, int]:
+    """contig row -> index of the first .scafSeq record containing it
+    (transcripts first, then C-singletons), twin-insensitive —
+    the analogue of .contigPosInscaff (prlReadFillGap outputSeqs)."""
+    owner: Dict[int, int] = {}
+    for ri, tr in enumerate(transcripts):
+        for c in tr.contigs:
+            owner.setdefault(c, ri)
+            owner.setdefault(int(twin[c]), ri)
+    for ri, (h, _s) in enumerate(recs[len(transcripts):], len(transcripts)):
+        if h.startswith("C"):
+            c = int(h[1:].split()[0])
+            owner.setdefault(c, ri)
+            owner.setdefault(int(twin[c]), ri)
+    return owner
+
+
+def reads_on_scaffolds(read_ctg: np.ndarray, owner: Dict[int, int],
+                       n_records: int):
+    """read -> record index (reference getReadOnScaf, ReadTrace.c:41).
+    Returns (per-read record idx or -1, per-record hit counts)."""
+    read_ctg = np.asarray(read_ctg)
+    hi = max([c for c in owner] + [int(read_ctg.max(initial=0))]) + 1
+    owner_arr = np.full(hi + 1, -1, np.int64)
+    for c, ri in owner.items():
+        owner_arr[c] = ri
+    rec_of = np.where(read_ctg >= 0, owner_arr[np.clip(read_ctg, 0, hi)], -1)
+    hits = np.bincount(rec_of[rec_of >= 0], minlength=n_records)
+    return rec_of, hits.astype(np.int64)
+
+
+def rpkm_table(recs: List[Tuple[str, str]], hits: np.ndarray
+               ) -> List[Tuple[str, int, int, float]]:
+    """RPKM per record (reference RPKMStat, orderContig.c:3092-3348):
+    hits * 1e9 / (total_mapped_reads * length), in float64."""
+    total = int(hits.sum())
+    out = []
+    for i, (h, s) in enumerate(recs):
+        rpkm = (hits[i] * 1e9 / (total * len(s))) if total and len(s) \
+            else 0.0
+        out.append((h.split()[0], len(s), int(hits[i]), rpkm))
+    return out

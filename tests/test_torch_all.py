@@ -2,8 +2,9 @@
 CLI's ``all``, byte for byte, at K = 23 and K = 31 (every stage file;
 .scafStatistics with the output prefix replaced, since the report names
 its own path); ``map -g`` then ``scaff -g`` resumed from copies of the
-contig files against the JAX CLI's; two map batch sizes; the refused
-flags; and ``all`` with jax, the JAX package and pandas unimportable."""
+contig files against the JAX CLI's; two map batch sizes; every flag use
+parsed as the JAX CLI parses it; and ``all -F -f -R`` with jax, the JAX
+package and pandas unimportable."""
 
 import gzip
 import os
@@ -137,16 +138,24 @@ def test_map_batch_size_keeps_files(jax_all, reads_cfg, tmp_path,
     ["scaff", "-g", "x", "-R"], ["all", "-s", "c", "-o", "x", "-f"],
     ["all", "-s", "c", "-o", "x", "-F"], ["all", "-s", "c", "-o", "x", "-S"],
     ["all", "-s", "c", "-o", "x", "-r"], ["all", "-s", "c", "-o", "x", "-R"],
-], ids=lambda a: " ".join([a[0], a[-1]]))
-def test_cli_refuses_unported_flags(argv, monkeypatch):
-    monkeypatch.setenv("SOAPDENOVO_TORCH_DEVICE", "cpu")
-    with pytest.raises(SystemExit, match="not ported yet"):
-        tcli.main(argv)
+    ["pregraph", "-s", "c", "-o", "x", "-R"], ["contig", "-g", "x", "-R"],
+    ["scaff", "-g", "x", "-s", "c", "-F", "-G", "30", "-S", "-r", "-R"],
+    ["all", "-s", "c", "-o", "x", "-F", "-f", "-S", "-r", "-R", "-G", "9"],
+], ids=lambda a: " ".join([a[0]] + [x for x in a if x[0] == "-"
+                                     and x not in ("-s", "-g", "-o")]))
+def test_cli_parses_flags_like_jax_cli(argv):
+    """No flag is refused: each use parses to what the JAX CLI's parser
+    gives (``all`` also carries the stage-only defaults)."""
+    want = vars(jcli.build_parser().parse_args(argv))
+    got = vars(tcli.build_parser().parse_args(argv))
+    assert {dest: got[dest] for dest in want} == want
+    assert not hasattr(tcli, "_refuse_unported")
 
 
 def test_all_runs_without_jax_or_pandas(tmp_path):
     """Neither jax, nor any module of the JAX package, nor pandas can be
-    imported: the port's ``all`` still runs to the end."""
+    imported: the port's ``all -F -f -R`` still runs to the end, then
+    ``pregraph -R``, ``contig -R`` and ``scaff -S -F -r`` on its files."""
     cfg = perf_e2e.synth(str(tmp_path), n_tx=10, n_pairs=300, seed=2)
     out = str(tmp_path / "nojax")
     code = (
@@ -154,8 +163,15 @@ def test_all_runs_without_jax_or_pandas(tmp_path):
         "for name in ('jax', 'soapdenovo_trans_tpu', 'pandas'):\n"
         "    sys.modules[name] = None\n"  # any import of them now fails
         "from soapdenovo_trans_tpu_torch import cli\n"
-        f"res = cli.main(['all', '-s', {cfg!r}, '-K', '23', '-o', {out!r}])\n"
+        f"res = cli.main(['all', '-s', {cfg!r}, '-K', '23', '-o', {out!r},\n"
+        "                 '-F', '-f', '-R'])\n"
         "assert res.map.mapped > 0 and res.scaff.recs\n"
+        "assert res.map.pe_rows > 0 and 'fill' in res.scaff.phase_seconds\n"
+        f"cli.main(['scaff', '-g', {out!r}, '-s', {cfg!r}, '-S', '-F', '-r'])\n"
+        f"pg = cli.main(['pregraph', '-s', {cfg!r}, '-o', {out!r}, '-R'])\n"
+        "assert pg.path_reads > 0\n"
+        f"ctg = cli.main(['contig', '-g', {out!r}, '-R'])[0]\n"
+        "assert ctg.reps_split is not None\n"
         "for name in ('jax', 'soapdenovo_trans_tpu', 'pandas'):\n"
         "    assert sys.modules[name] is None\n")
     env = dict(os.environ, SOAPDENOVO_TORCH_DEVICE="cpu",
@@ -163,6 +179,10 @@ def test_all_runs_without_jax_or_pandas(tmp_path):
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
-    for ext in (".contig",) + MAP_FILES + (".scaf", ".scafSeq",
-                                           ".scafStatistics"):
+    for ext in (".contig",) + MAP_FILES + (
+            ".scaf", ".scafSeq", ".scafStatistics", ".readInformation",
+            ".PEreadOnContig.gz", ".readOnScaf", ".RPKM.Stat", ".path",
+            ".markOnEdge"):
         assert os.path.getsize(out + ext) > 0, ext
+    for ext in (".readInGap", ".shortreadInGap.gz", ".gapSeq"):
+        assert os.path.exists(out + ext), ext
