@@ -19,7 +19,10 @@ Phases, each of which raises on failure:
    once and equal the concat + sort path on the same CUDA tensors (rows,
    counts and every ``KmerTable`` field), and the times of both paths
    and of the merge alone (``merge_rows_ms``: the rest is the dedup, or
-   ``_finalize``, after it);
+   ``_finalize``, after it).  Last, the two uploads of one 32M-row
+   build unit of 100 bp reads: raw uint8 codes against the 2-bit packed
+   form of ``ops/readpack.py`` (host pack, upload, unpack on the card),
+   which must build the same sorted run;
 4. the port's ``pregraph -R``, ``contig -R -g``, ``map -f -r -g``,
    ``scaff -F -R -g`` and ``scaff -S -F -g`` (they write the files of the
    plain stages and more), and then ``all`` and ``all -F -f -R`` on
@@ -27,15 +30,18 @@ Phases, each of which raises on failure:
    ``cuda`` (K = 23 through the kernel, K = 31 through the three-lane
    sort) must write identical files, stage by stage and under ``all``
    (.scafStatistics with the output prefix replaced, since the report
-   names its own path; ``.gz`` files decompressed);
-5. pregraph at real size: ``pregraph -K 23`` on 1,000,000 simulated
-   read pairs (2x100 bp, insert 300, 10,000 transcripts of 1,500 bp,
-   half with SNP isoforms, 0.2% errors, seed 0) through the CLI entry
+   names its own path; ``.gz`` files decompressed); and ``all`` on a
+   mesh of two logical shards of each device (``cpu,cpu`` and
+   ``cuda:0,cuda:0``) must write the files of the one-device ``all``;
+5. pregraph at real size: ``pregraph -K 23`` on 500,000 simulated
+   read pairs (2x100 bp, insert 300, 5,000 transcripts of 1,500 bp,
+   half with SNP isoforms, 0.2% errors, seed 0; 1,000,000 pairs until
+   the mesh path's phase took its seconds) through the CLI entry
    point, with the kernel's launch count reset just before; the table
    must count every valid K-window, the .kmerFreq histogram must sum to
    the distinct k-mers, and edges and preArcs must exist;
-6. the main path: ``all -K 23`` through ``cli.main`` on 500,000 pairs
-   of the same simulation (5,000 transcripts, seed 0), with the launch
+6. the main path: ``all -K 23`` through ``cli.main`` on the same
+   500,000 pairs, with the launch
    count reset just before (``all`` resets the peak-memory statistics
    before each stage).  The contig stage at 1,000,000 pairs takes about
    950 s on an H100 (31,426 Tour-Bus waves of 30 ms), and at 600,000
@@ -65,11 +71,23 @@ Phases, each of which raises on failure:
    merge kernel; at 300,000 pairs Tour-Bus after splitting runs 4,792
    waves, 123-159 s, too long beside phase 6): .path holds as many records as the recorder
    counted, .markOnEdge one line per edge, and the repeat edges split
-   are reported.  Seconds of every part and peak bytes are printed.
+   are reported.  Seconds of every part and peak bytes are printed;
+8. the mesh path at full width, on four logical shards of the one
+   card (``SOAPDENOVO_TORCH_DEVICE=cuda:0,cuda:0,cuda:0,cuda:0``; no
+   multi-card measurement), with the launch count reset just before:
+   ``pregraph -K 23`` through ``cli.main`` on phase 6's 500,000 pairs.
+   Against phase 6's one-device pregraph files: .kmerFreq byte for
+   byte; the same number of distinct k-mers, edges and preArcs; the same
+   set of .edge.gz records (length, end k-mers, coverage, sequence); the
+   merge kernel launched at least once.  Then ``map -g`` on the mesh on
+   a copy of phase 6's contig files: .readOnContig, .ctg2Read and
+   .peGrads byte for byte those of phase 7's one-device ``map -f -r -g``
+   on the same files.  Seconds by phase, peak bytes and the number and
+   bytes of the exchanges between shards are printed.
 
-The line before the last two is a JSON object of phase 7's numbers, the
-one before it of the main path's; the second-to-last describes the
-kernel; the last line is
+The line before the last two is a JSON object of phase 8's numbers, the
+one before it of phase 7's, the one before that of the main path's; the
+second-to-last describes the kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing
 of the JAX package (``soapdenovo_trans_tpu``); the reads come from
 ``perf_e2e.synth``, which imports neither.
@@ -92,8 +110,7 @@ import numpy as np
 import torch
 
 K = 23
-SMOKE_PAIRS = 1_000_000
-SMOKE_TX = 10_000
+MESH_SHARDS = 4
 CONTIG_PAIRS = 500_000
 CONTIG_TX = 5_000
 REPS_PAIRS = 220_000
@@ -200,7 +217,68 @@ def phase_kernel(merge_path, dev) -> dict:
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": None, **phase_packed(merge_path, dev)}
+            "library_ms": None, **phase_packed(merge_path, dev),
+            "upload": phase_upload(dev)}
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock time of fn() in milliseconds, the device
+    synchronized before and after (fn is run once first)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_upload(dev) -> dict:
+    """One counting build unit of 100 bp reads (UNIT_ROWS K-windows,
+    0.1% N bases) uploaded raw and 2-bit packed: the same sorted run,
+    and the milliseconds of each step."""
+    from soapdenovo_trans_tpu_torch.ops import dictionary, readpack
+
+    read_len = 100
+    reads = -(-UNIT_ROWS // (read_len - K + 1) // 4096) * 4096
+    rng = np.random.default_rng(3)
+    codes = rng.integers(0, 4, size=(reads, read_len), dtype=np.uint8)
+    codes[rng.random((reads, read_len)) < 0.001] = 4
+    lengths = np.full(reads, read_len, np.int32)
+
+    packed = dictionary.pack_host_reads(codes, lengths)
+    if packed[0] != "packed":
+        raise AssertionError("the build unit was not packed")
+    raw_run = dictionary.sorted_run_from_reads(
+        torch.from_numpy(codes).to(dev), torch.from_numpy(lengths).to(dev), K)
+    run = dictionary.sorted_run_from_prepped(
+        dictionary.put_prepped(packed, dev), K)
+    if not (torch.equal(run.rows, raw_run.rows)
+            and torch.equal(run.count, raw_run.count)):
+        raise AssertionError("the packed upload builds another run than "
+                             "the raw upload")
+    del run, raw_run
+    on_card = dictionary.put_prepped(packed, dev)
+    times = {
+        "reads": reads, "raw_bytes": int(codes.nbytes),
+        "packed_bytes": int(packed[1].nbytes + packed[2].nbytes),
+        "raw_upload_ms": host_ms(
+            lambda: torch.from_numpy(codes).to(dev)),
+        "pack_host_ms": host_ms(
+            lambda: dictionary.pack_host_reads(codes, lengths), reps=3),
+        "packed_upload_ms": host_ms(
+            lambda: dictionary.put_prepped(packed, dev)),
+        "unpack_ms": cuda_ms(lambda: readpack.unpack_reads(
+            on_card[1], on_card[2], read_len), reps=5)}
+    times["packed_total_ms"] = times["pack_host_ms"] + \
+        times["packed_upload_ms"] + times["unpack_ms"]
+    log("[upload] one build unit, raw against 2-bit packed (the same "
+        "sorted run): " + json.dumps(times))
+    del on_card
+    torch.cuda.empty_cache()
+    return times
 
 
 def packed_table(dictionary, gen: torch.Generator, extra, dev):
@@ -321,6 +399,8 @@ def phase_cpu_gpu(cli, pg_stage, perf_e2e, tmp: str) -> None:
                        for d in DEVICES}
             resumed = {d: os.path.join(tmp, f"resumed_k{k}_{d}")
                        for d in DEVICES}
+            meshed = {d: os.path.join(tmp, f"mesh_k{k}_{d}")
+                      for d in DEVICES}
             for d in DEVICES:
                 run_stage(cli, ["pregraph", "-s", cfg, "-K", str(k), "-R",
                                 "-o", staged[d]], d)
@@ -337,6 +417,10 @@ def phase_cpu_gpu(cli, pg_stage, perf_e2e, tmp: str) -> None:
                                 whole[d]], d)
                 run_stage(cli, ["all", "-s", cfg, "-K", str(k), "-F", "-f",
                                 "-R", "-o", flagged[d]], d)
+                # two logical shards of the same device
+                run_stage(cli, ["all", "-s", cfg, "-K", str(k), "-o",
+                                meshed[d]],
+                          "cpu,cpu" if d == "cpu" else "cuda:0,cuda:0")
             extras = GAP_READ_FILES + READ_TABLES
             assert_same_files(staged["cpu"], staged["cuda"],
                               ALL_FILES + (".newContigIndex",) + PATH_FILES
@@ -352,9 +436,15 @@ def phase_cpu_gpu(cli, pg_stage, perf_e2e, tmp: str) -> None:
             assert_same_files(flagged["cpu"], flagged["cuda"],
                               ALL_FILES + extras,
                               f"K={k}, all -F -f -R, cpu vs cuda")
+            for d in DEVICES:
+                assert_same_files(meshed[d], whole[d], ALL_FILES,
+                                  f"K={k}, all on a mesh of 2 {d} shards "
+                                  f"vs one device")
             log(f"[parity] K={k}: cpu and cuda files of pregraph -R, "
                 f"contig -R, map -f -r, scaff -F -R and scaff -S -F "
-                f"identical stage by stage, and under all and all -F -f -R")
+                f"identical stage by stage, and under all and all -F -f -R; "
+                f"all on two logical shards of either device writes the "
+                f"one-device files")
     finally:
         pg_stage.TARGET_BUILD_ROWS = default_rows
 
@@ -377,10 +467,7 @@ def valid_windows(cfg_path: str, k: int) -> int:
     return total
 
 
-def phase_slice(cli, merge_path, perf_e2e, tmp: str) -> int:
-    t0 = time.time()
-    cfg = perf_e2e.synth(tmp, n_tx=SMOKE_TX, n_pairs=SMOKE_PAIRS, seed=0)
-    log(f"[slice] simulated {SMOKE_PAIRS} pairs in {time.time() - t0:.1f}s")
+def phase_slice(cli, merge_path, cfg: str, tmp: str) -> int:
     out = os.path.join(tmp, "slice")
     torch.cuda.reset_peak_memory_stats()
     merge_path.LAUNCHES = 0
@@ -409,7 +496,7 @@ def phase_slice(cli, merge_path, perf_e2e, tmp: str) -> int:
         f"{res.edges.n_edges} edges, {res.arcs.n} preArcs; "
         f"merge launches {launches}")
     log("[slice] " + json.dumps({
-        "pairs": SMOKE_PAIRS, "stage_s": stage_s,
+        "pairs": CONTIG_PAIRS, "stage_s": stage_s,
         "phase_s": res.phase_seconds, "peak_bytes": peak}))
     return launches
 
@@ -568,14 +655,11 @@ def check_scaffolds(out: str, contig_recs):
     return scaf
 
 
-def phase_all(cli, merge_path, perf_e2e, smi: str, tmp: str):
+def phase_all(cli, merge_path, smi: str, tmp: str, cfg: str):
     from soapdenovo_trans_tpu_torch.graph import contig_merge
     from soapdenovo_trans_tpu_torch.ops import dictionary, kmer
     from soapdenovo_trans_tpu_torch.stages import pelinks
 
-    t0 = time.time()
-    cfg = perf_e2e.synth(tmp, n_tx=CONTIG_TX, n_pairs=CONTIG_PAIRS, seed=0)
-    log(f"[all] simulated {CONTIG_PAIRS} pairs in {time.time() - t0:.1f}s")
     out = os.path.join(tmp, "all")
     dev = torch.device("cuda")
     merge_path.LAUNCHES = 0
@@ -663,7 +747,7 @@ def phase_all(cli, merge_path, perf_e2e, smi: str, tmp: str):
         f"{s} {t:.1f}s" for s, t in res.stage_seconds.items()) +
         f"; peak GB {peaks}; {tb['waves']} Tour-Bus waves of "
         f"{tb['s_per_wave'] * 1e3:.2f} ms on {smi}")
-    return launches, numbers, res, cfg, out
+    return launches, numbers, res, out
 
 
 def timed_stage(cli, argv, seconds: dict, peaks: dict, name: str):
@@ -814,6 +898,101 @@ def phase_flags(cli, merge_path, perf_e2e, smi: str, tmp: str, all_res,
         f"{name} {sec:.1f}s" for name, sec in seconds.items()) +
         f"; {pres.path_reads} read paths, {cres.reps_split} repeat edges "
         f"split on {smi}")
+    return launches, numbers, out
+
+
+def edge_records(path: str) -> list:
+    """The sorted records of an .edge.gz: each a header (length, end
+    k-mers, coverage, twin flag) with its sequence."""
+    recs = []
+    for line in read_stage_file(path).decode().splitlines():
+        if line.startswith(">"):
+            recs.append([line])
+        else:
+            recs[-1].append(line)
+    return sorted("\n".join(r) for r in recs)
+
+
+def phase_mesh(cli, merge_path, smi: str, tmp: str, all_res, cfg: str,
+               all_out: str, map_out: str):
+    """Phase 8: pregraph and map on MESH_SHARDS logical shards of the
+    card, against the one-device files of phases 6 and 7."""
+    spec = ",".join(["cuda:0"] * MESH_SHARDS)
+    dense = all_res.pregraph
+    seconds, peaks = {}, {}
+    t_phase = time.time()
+
+    out = os.path.join(tmp, "mesh")
+    merge_path.LAUNCHES = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = run_stage(cli, ["pregraph", "-s", cfg, "-K", str(K), "-o", out],
+                    spec)
+    torch.cuda.synchronize()
+    seconds["pregraph"] = time.time() - t0
+    peaks["pregraph"] = torch.cuda.max_memory_allocated()
+    launches = merge_path.LAUNCHES
+    if launches < 1:
+        raise AssertionError("the mesh path never launched the merge kernel")
+    if res.freq_hist is None or res.exchanges is None:
+        raise AssertionError("pregraph did not take the mesh path")
+    if read_stage_file(out + ".kmerFreq") != \
+            read_stage_file(all_out + ".kmerFreq"):
+        raise AssertionError("mesh: .kmerFreq differs from the one-device "
+                             "run's")
+    got = (res.n_distinct, res.edges.n_edges, res.arcs.n)
+    want = (dense.table.n, dense.edges.n_edges, dense.arcs.n)
+    if got != want:
+        raise AssertionError(f"mesh: (distinct k-mers, edges, preArcs) "
+                             f"{got}, one device {want}")
+    if edge_records(out + ".edge.gz") != edge_records(all_out + ".edge.gz"):
+        raise AssertionError("mesh: the edge records differ from the "
+                             "one-device run's")
+    same_bytes = [ext for ext in STAGE_FILES if read_stage_file(out + ext)
+                  == read_stage_file(all_out + ext)]
+    log(f"[mesh] pregraph on {MESH_SHARDS} logical shards of one card: "
+        f"{got[0]} distinct k-mers, {got[1]} edges, {got[2]} preArcs and "
+        f"the edge records as on one device; byte-identical files: "
+        f"{' '.join(same_bytes)}; merge launches {launches}")
+
+    mapped = os.path.join(tmp, "mesh_map")
+    copy_prefix(all_out, mapped, RESUME_INPUTS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    mres = run_stage(cli, ["map", "-s", cfg, "-g", mapped], spec)
+    torch.cuda.synchronize()
+    seconds["map"] = time.time() - t0
+    peaks["map"] = torch.cuda.max_memory_allocated()
+    if mres.exchanges is None:
+        raise AssertionError("map did not take the mesh path")
+    for ext in MAP_FILES + (".peGrads",):
+        if read_stage_file(mapped + ext) != read_stage_file(map_out + ext):
+            raise AssertionError(f"mesh: map's {ext} differs from the "
+                                 f"one-device run's")
+    numbers = {
+        "card": smi, "shards": MESH_SHARDS,
+        "what": f"{MESH_SHARDS} logical shards on one card",
+        "pairs": CONTIG_PAIRS, "phase_s": time.time() - t_phase,
+        "seconds": seconds, "peak_bytes": peaks,
+        "pregraph_phase_s": res.phase_seconds,
+        "one_device_pregraph_phase_s": dense.phase_seconds,
+        "distinct_kmers": got[0], "edges": got[1], "pre_arcs": got[2],
+        "byte_identical": same_bytes,
+        "exchanges": res.exchanges, "exchange_bytes": res.exchange_bytes,
+        "map": {"mapped": mres.mapped, "groups": mres.groups,
+                "phase_s": mres.phase_seconds, "exchanges": mres.exchanges,
+                "exchange_bytes": mres.exchange_bytes},
+        "merge_launches": launches}
+    log(f"[mesh] {numbers['phase_s']:.1f}s: pregraph "
+        f"{seconds['pregraph']:.1f}s (" + ", ".join(
+            f"{n} {t:.1f}" for n, t in res.phase_seconds.items()) +
+        f"), peak {peaks['pregraph'] / 1e9:.2f} GB, {res.exchanges} "
+        f"exchanges of {res.exchange_bytes / 1e9:.2f} GB; map "
+        f"{seconds['map']:.1f}s, its three files as on one device, "
+        f"{mres.exchanges} exchanges of {mres.exchange_bytes / 1e9:.2f} GB; "
+        f"{MESH_SHARDS} logical shards on one card, {smi}")
     return launches, numbers
 
 
@@ -844,19 +1023,25 @@ def main() -> int:
 
     timing = phase_kernel(merge_path, dev)
     lap("kernel")
+    card = smi.splitlines()[0]
     with tempfile.TemporaryDirectory() as tmp:
         phase_cpu_gpu(cli, pg_stage, perf_e2e, tmp)
         lap("cpu_gpu")
-        slice_launches = phase_slice(cli, merge_path, perf_e2e, tmp)
-        lap("pregraph_1m")
     with tempfile.TemporaryDirectory() as tmp:
-        launches, numbers, res, cfg, out = phase_all(
-            cli, merge_path, perf_e2e, smi.splitlines()[0], tmp)
+        cfg = perf_e2e.synth(tmp, n_tx=CONTIG_TX, n_pairs=CONTIG_PAIRS,
+                             seed=0)
+        lap("simulate")
+        slice_launches = phase_slice(cli, merge_path, cfg, tmp)
+        lap("pregraph")
+        launches, numbers, res, out = phase_all(cli, merge_path, card, tmp,
+                                                cfg)
         lap("all")
-        flag_launches, flag_numbers = phase_flags(
-            cli, merge_path, perf_e2e, smi.splitlines()[0], tmp, res, cfg,
-            out)
+        flag_launches, flag_numbers, map_out = phase_flags(
+            cli, merge_path, perf_e2e, card, tmp, res, cfg, out)
         lap("options")
+        mesh_launches, mesh_numbers = phase_mesh(
+            cli, merge_path, card, tmp, res, cfg, out, map_out)
+        lap("mesh")
         del res
     log("[script] seconds of each phase, simulation and checks included: "
         + json.dumps(script_s))
@@ -869,14 +1054,16 @@ def main() -> int:
 
     log("[all] " + json.dumps(numbers))
     log("[flags] " + json.dumps(flag_numbers))
+    log("[mesh] " + json.dumps(mesh_numbers))
     log(json.dumps({"kernels": [{
         "name": "merge_path", "route": "cuda",
         "source": "soapdenovo_trans_tpu_torch/csrc/merge_path.cu",
         "replaces": "soapdenovo_trans_tpu/kernels/merge_path.py:284",
         "launches": launches,
-        "launches_by_path": {"pregraph_1m": slice_launches,
+        "launches_by_path": {"pregraph_500k": slice_launches,
                              "all_500k": launches,
-                             "options_500k_220k": flag_launches},
+                             "options_500k_220k": flag_launches,
+                             "mesh_4_shards_500k": mesh_launches},
         **timing}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,13 @@ the same files.  The parser is this module's own: the port loads no
 module of the JAX package.
 
 The device comes from ``SOAPDENOVO_TORCH_DEVICE`` (default ``cuda``);
-a missing device is an error, never a silent fallback to the CPU.
+a missing device is an error, never a silent fallback to the CPU.  A
+comma list (``cuda:0,cuda:0,cuda:0,cuda:0``, ``cpu,cpu``,
+``cuda:0,cuda:1``) of more than one entry is a mesh with one shard an
+entry (parallel/mesh.py): ``pregraph`` and ``map``, and so ``all``, then
+take the mesh path, and the other stages run on the first entry.  With
+the plain default ``cuda`` and more than one visible card, the mesh is
+all the cards unless ``SOAPDENOVO_TORCH_NO_SHARD`` is set.
 
 Usage:
     python -m soapdenovo_trans_tpu_torch all -s reads.config -K 23 -o out
@@ -161,14 +167,39 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def device_from_env() -> torch.device:
-    """The device named by SOAPDENOVO_TORCH_DEVICE (default cuda)."""
-    dev = torch.device(os.environ.get("SOAPDENOVO_TORCH_DEVICE", "cuda"))
-    if dev.type == "cuda" and not torch.cuda.is_available():
+def devices_from_env() -> list:
+    """The devices named by SOAPDENOVO_TORCH_DEVICE (default cuda), one
+    a shard; plain ``cuda`` on a machine with several cards names them
+    all unless SOAPDENOVO_TORCH_NO_SHARD is set."""
+    spec = os.environ.get("SOAPDENOVO_TORCH_DEVICE", "cuda")
+    devs = [torch.device(x.strip()) for x in spec.split(",") if x.strip()]
+    if not devs:
+        raise RuntimeError("SOAPDENOVO_TORCH_DEVICE names no device")
+    if any(d.type == "cuda" for d in devs) and \
+            not torch.cuda.is_available():
         raise RuntimeError(
             "SOAPDENOVO_TORCH_DEVICE names a CUDA device but torch sees "
             "none; set SOAPDENOVO_TORCH_DEVICE=cpu to run on the CPU")
-    return dev
+    if devs == [torch.device("cuda")] and torch.cuda.device_count() > 1 \
+            and not os.environ.get("SOAPDENOVO_TORCH_NO_SHARD"):
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return devs
+
+
+def device_from_env() -> torch.device:
+    """The first device of ``devices_from_env``: the one the stages
+    without a mesh path run on."""
+    return devices_from_env()[0]
+
+
+def mesh_from_env():
+    """A ``Mesh`` over ``devices_from_env`` if it names more than one
+    shard, else None."""
+    from .parallel.mesh import Mesh
+
+    devs = devices_from_env()
+    return Mesh(devs) if len(devs) > 1 else None
 
 
 class _CountingFactory:
@@ -238,13 +269,15 @@ def _count_n_windows(codes, lens, k):
     return int((has_n & in_range).sum())
 
 
-def run_pregraph_cmd(args, device: torch.device):
+def run_pregraph_cmd(args, device: torch.device, mesh=None):
     from .io import graph_files, libconfig, stagefiles
     from .stages import pregraph as pg_stage
 
     cfg = libconfig.parse_config(args.config)
     if args.k % 2 == 0 or not (13 <= args.k <= 127):
         sys.exit("K must be odd and within 13..127")
+    if mesh is not None:
+        print(f"[pregraph] sharding kmer space over {mesh}")
     factory = _CountingFactory(cfg, n_kmer_k=args.k if args.n_kmer else 0)
     recorders = []
 
@@ -256,14 +289,18 @@ def run_pregraph_cmd(args, device: torch.device):
 
     res = pg_stage.run_pregraph(
         factory, args.k, device, low_freq_cutoff=args.low_kmer,
-        path_recorder_factory=recorder_factory if args.reps_tie else None)
+        path_recorder_factory=recorder_factory if args.reps_tie else None,
+        mesh=mesh)
     if recorders:
         rec, nxt = recorders[0]
         stagefiles.write_mark_on_edge(
             args.out + ".markOnEdge", rec.close(), nxt - 1)
         res.path_reads = rec.n_reads
         print(f"[pregraph] wrote {args.out}.path/.markOnEdge")
-    hist = pg_stage.kmer_freq_histogram(res.table)
+    # a mesh run counts the histogram on the mesh (res.table is then
+    # only the mini endpoint table)
+    hist = res.freq_hist if res.freq_hist is not None \
+        else pg_stage.kmer_freq_histogram(res.table)
     if factory.n_windows:
         # -n: the reference hashes every N-containing window as one
         # InvalidKmer node (prlHashReads.c:207-213); it surfaces in the
@@ -360,6 +397,9 @@ class MapResult:
     phase_seconds: Dict[str, float]  # index, reads (vote: device part)
     gap_reads: Optional[int] = None  # -f: .readInGap records
     pe_rows: Optional[int] = None    # -f: .PEreadOnContig.gz rows
+    # the mesh path: exchanges between shards and the bytes they moved
+    exchanges: Optional[int] = None
+    exchange_bytes: Optional[int] = None
 
 
 def _gap_read_rows(pl_ctg, pl_pos, per_read, codes, lengths, row_no, ins):
@@ -406,10 +446,14 @@ def _gap_read_rows(pl_ctg, pl_pos, per_read, codes, lengths, row_no, ins):
         lengths[src]), pe
 
 
-def run_map_cmd(args, device: torch.device, ctg=None, table=None):
+def run_map_cmd(args, device: torch.device, ctg=None, table=None,
+                mesh=None):
     """The map stage, from the contig stage files (``ctg`` None) or in
     memory, as ``all`` runs it; writes .peGrads/.readOnContig/.ctg2Read
-    (JAX ``cli.run_map_cmd``, reference prlRead2Ctg.c:656-1086)."""
+    (JAX ``cli.run_map_cmd``, reference prlRead2Ctg.c:656-1086).  With a
+    mesh the contig index is sharded and the read pass runs on the mesh
+    (the reference threads this pass too, prlRead2Ctg.c:656); the files
+    are the same."""
     from .graph import connections
     from .io import fastx, graph_files, libconfig, stagefiles
     from .stages import map as map_stage
@@ -425,6 +469,13 @@ def run_map_cmd(args, device: torch.device, ctg=None, table=None):
     t0 = time.time()
     index = map_stage.build_contig_index(ctg, table, k)
     full_len = ctg.length + k
+    sidx = None
+    if mesh is not None:
+        from .parallel import sharded_map
+
+        moved = (mesh.exchanges, mesh.exchange_bytes)
+        sidx = sharded_map.shard_index(mesh, index, k)
+        print(f"[map] sharding contig index over {mesh}")
     t1 = time.time()
 
     group_rows = []  # per batch: (read, ctg, ctg_off, read_off, same, align)
@@ -454,10 +505,14 @@ def run_map_cmd(args, device: torch.device, ctg=None, table=None):
         row_no = base + np.cumsum(real) - 1  # row -> 0-based read index
         max_read_len = max(max_read_len, int(lengths.max()))
         tv = time.time()
-        pl = map_stage.map_reads(
-            torch.from_numpy(codes).to(device),
-            torch.from_numpy(lengths).to(device), index, k,
-            map_len=lib.map_len or 32)
+        if sidx is not None:
+            pl = sharded_map.map_reads_sharded(
+                mesh, sidx, codes, lengths, k, map_len=lib.map_len or 32)
+        else:
+            pl = map_stage.map_reads(
+                torch.from_numpy(codes).to(device),
+                torch.from_numpy(lengths).to(device), index, k,
+                map_len=lib.map_len or 32)
         q = pl.g_valid
         g = torch.stack([pl.g_read[q], pl.g_ctg[q], pl.g_ctg_off[q],
                          pl.g_read_off[q], pl.g_same[q].to(torch.int64),
@@ -554,7 +609,9 @@ def run_map_cmd(args, device: torch.device, ctg=None, table=None):
     print(f"[map] wrote {args.out}.readOnContig/.ctg2Read/.peGrads")
     return MapResult(base, int(sel.size), int(g_read.size), index.n, {
         "index": t1 - t0, "reads": t2 - t1, "vote": vote_s,
-        "write": time.time() - t2}, n_gap, n_pe)
+        "write": time.time() - t2}, n_gap, n_pe,
+        mesh.exchanges - moved[0] if mesh else None,
+        mesh.exchange_bytes - moved[1] if mesh else None)
 
 
 def run_scaff_cmd(args, device: torch.device, ctg=None, table=None):
@@ -662,7 +719,8 @@ def _write_read_tables(args, sres, ctg, k: int, read_ctg) -> None:
 @dataclasses.dataclass
 class AllResult:
     """The four stages of ``all``, with each stage's seconds (host
-    clock, device synchronized) and peak device memory (CUDA only)."""
+    clock, devices synchronized) and peak device memory (CUDA only; on
+    a mesh, of its first device)."""
 
     pregraph: object
     contig: object
@@ -672,31 +730,43 @@ class AllResult:
     peak_bytes: Dict[str, Optional[int]]
 
 
-def run_all(args, device: torch.device) -> AllResult:
+def run_all(args, device: torch.device, mesh=None,
+            timings=None) -> AllResult:
     """pregraph -> contig in memory -> map in memory -> scaff (JAX
-    ``cli.main``'s ``all``, cli.py:748-756)."""
+    ``cli.main``'s ``all``, cli.py:748-756); pregraph and map on the
+    mesh if there is one.  The stages' seconds also go into
+    ``timings`` (a ``profiling.StageTimings``) when given."""
+    from .utils import profiling
+
+    timings = timings or profiling.StageTimings()
     seconds: Dict[str, float] = {}
     peak: Dict[str, Optional[int]] = {}
     cuda = device.type == "cuda"
 
-    def stage(name, fn):
-        if cuda:
+    def sync():
+        if mesh is not None:
+            mesh.synchronize()
+        elif cuda:
             torch.cuda.synchronize(device)
+
+    def stage(name, fn):
+        sync()
+        if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         t0 = time.time()
-        out = fn()
-        if cuda:
-            torch.cuda.synchronize(device)
+        with timings.stage_timer(name):
+            out = fn()
+            sync()
         seconds[name] = time.time() - t0
         peak[name] = torch.cuda.max_memory_allocated(device) if cuda \
             else None
         return out
 
-    res = stage("pregraph", lambda: run_pregraph_cmd(args, device))
+    res = stage("pregraph", lambda: run_pregraph_cmd(args, device, mesh))
     contig, table, _k = stage(
         "contig", lambda: run_contig_cmd(args, device, res))
     mres = stage("map", lambda: run_map_cmd(
-        args, device, ctg=contig.contigs, table=table))
+        args, device, ctg=contig.contigs, table=table, mesh=mesh))
     sres = stage("scaff", lambda: run_scaff_cmd(
         args, device, ctg=contig.contigs, table=table))
     return AllResult(res, contig, mres, sres, seconds, peak)
@@ -706,13 +776,23 @@ def main(argv=None):
     """Parse ``argv`` and run the subcommand; returns its result: a
     ``PregraphResult``, ``run_contig_cmd``'s tuple, a ``MapResult``, a
     ``ScaffResult`` or, for ``all``, an ``AllResult``."""
+    from .utils import profiling
+
     args = build_parser().parse_args(argv)
-    device = device_from_env()
+    device, mesh = device_from_env(), mesh_from_env()
+    timings = profiling.StageTimings()
     t0 = time.time()
-    run = {"pregraph": run_pregraph_cmd, "contig": run_contig_cmd,
-           "map": run_map_cmd, "scaff": run_scaff_cmd, "all": run_all}
-    res = run[args.cmd](args, device)
-    print(f"[done] {args.cmd} on {device} {time.time() - t0:.1f}s")
+    runs = {"pregraph": lambda: run_pregraph_cmd(args, device, mesh),
+            "contig": lambda: run_contig_cmd(args, device),
+            "map": lambda: run_map_cmd(args, device, mesh=mesh),
+            "scaff": lambda: run_scaff_cmd(args, device)}
+    if args.cmd == "all":  # times its four stages itself
+        res = run_all(args, device, mesh, timings)
+    else:
+        with timings.stage_timer(args.cmd):
+            res = runs[args.cmd]()
+    print(timings.timing_table())
+    print(f"[done] {args.cmd} on {mesh or device} {time.time() - t0:.1f}s")
     return res
 
 

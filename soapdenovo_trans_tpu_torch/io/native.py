@@ -2,10 +2,10 @@
 (``csrc/fastx_decoder.cpp`` at the repository root) — the C++
 replacement for the reference's readseq1by1.c + aio read-ahead.
 
-A copy of ``available`` and ``read_batches`` from
-``soapdenovo_trans_tpu/io/native.py`` (its 2-bit upload packer is left
-out: the port uploads uint8 codes): the port loads no module of the JAX
-package, so a run of the port stands on its own where only torch is
+A copy of ``available``, ``read_batches`` and ``pack2bit`` (the 2-bit
+upload packer of ops/readpack.py) from
+``soapdenovo_trans_tpu/io/native.py``: the port loads no module of the
+JAX package, so a run of the port stands on its own where only torch is
 installed.  The library is compiled with g++ (zlib linked) at first use
 into this package's ``_build/``; without a toolchain ``available()`` is
 False and the callers take the pure-Python readers, which yield the
@@ -64,8 +64,35 @@ def _load() -> Optional[ctypes.CDLL]:
         ctypes.c_long, ctypes.c_long]
     lib.fastx_close.restype = None
     lib.fastx_close.argtypes = [ctypes.c_void_p]
+    lib.pack2bit.restype = ctypes.c_long
+    lib.pack2bit.argtypes = [
+        np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+        ctypes.c_long, ctypes.c_long,
+        np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        ctypes.c_long]
     _lib = lib
     return _lib
+
+
+def pack2bit(codes: np.ndarray, ncap: int
+             ) -> Optional[Tuple[np.ndarray, np.ndarray, int]]:
+    """Native 4-bases/byte pack + N-position sideband; None when the
+    library is unavailable or the batch has more Ns than ncap (the
+    caller uploads raw uint8).  See readpack.pack_reads for the
+    contract."""
+    lib = _load()
+    if lib is None:
+        return None
+    codes = np.ascontiguousarray(codes, np.uint8)
+    r, l = codes.shape
+    out = np.empty((r, (l + 3) // 4), np.uint8)
+    n_flat = np.empty(ncap, np.int32)
+    n = lib.pack2bit(codes, r, l, out, n_flat, ncap)
+    if n < 0:
+        return None
+    n_flat[n:] = r * l
+    return out, n_flat, int(n)
 
 
 def available() -> bool:

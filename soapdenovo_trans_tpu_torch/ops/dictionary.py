@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..kernels import merge_path
@@ -134,6 +135,52 @@ def sorted_run_from_reads(seqs: torch.Tensor, lengths: torch.Tensor,
         stream.kmers, stream.prev, stream.next, stream.valid, k))
     cnt = (~_is_sentinel(rows)).to(torch.int32)
     return SortedRun(rows, cnt, cnt.sum(dtype=torch.int64))
+
+
+def pack_host_reads(codes, lengths):
+    """The host half of a build unit that uploads packed: 2-bit pack
+    (ops/readpack.py), or the raw codes if the batch holds too many N.
+    Pure numpy, so a caller may run it beside the device's work."""
+    from . import readpack
+
+    codes = np.asarray(codes)
+    lengths = np.asarray(lengths)
+    if lengths.max(initial=0) < 2**15:
+        lengths = lengths.astype(np.int16)
+    pr = readpack.pack_reads(codes)
+    if pr is None:
+        return ("raw", codes, lengths)
+    return ("packed", pr.data, pr.n_flat, lengths, pr.l)
+
+
+def put_prepped(packed, device):
+    """The upload half of a build unit (see ``pack_host_reads``)."""
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    if packed[0] == "raw":
+        _, codes, lengths = packed
+        return ("raw", put(codes), put(lengths))
+    _, data, n_flat, lengths, l = packed
+    return ("packed", put(data), put(n_flat), put(lengths), l)
+
+
+def sorted_run_from_prepped(prepped, k: int) -> SortedRun:
+    """Device build from ``put_prepped``'s output.  No host sync."""
+    from . import readpack
+
+    if prepped[0] == "raw":
+        _, codes, lengths = prepped
+    else:
+        _, data, n_flat, lengths, l = prepped
+        codes = readpack.unpack_reads(data, n_flat, l)
+    return sorted_run_from_reads(codes, lengths, k)
+
+
+def sorted_run_from_host_reads(codes, lengths, k: int, device) -> SortedRun:
+    """pack + upload + build of one unit of host reads."""
+    return sorted_run_from_prepped(
+        put_prepped(pack_host_reads(codes, lengths), device), k)
 
 
 def _concat_sort(a, b):
@@ -259,7 +306,8 @@ def finalize_run(run: SortedRun, k: int) -> KmerTable:
     return _fit_table(*_finalize(c.rows, c.count, k))
 
 
-def _packed(rows: torch.Tensor, count: torch.Tensor) -> PackedTable:
+def packed_from_sorted(rows: torch.Tensor,
+                       count: torch.Tensor) -> PackedTable:
     """Sorted rows with counts -> PackedTable (dedup, one host sync)."""
     rows, count = _dedup_sorted(rows, count)
     return PackedTable(_pad_to_one(rows, SENTINEL), _pad_to_one(count, 0),
@@ -272,7 +320,7 @@ def build_packed(stream: kmer.KmerStream, k: int) -> PackedTable:
     src/newhash.c:411-462)."""
     rows, = sort_rows(pack_stream(
         stream.kmers, stream.prev, stream.next, stream.valid, k))
-    return _packed(rows, (~_is_sentinel(rows)).to(torch.int32))
+    return packed_from_sorted(rows, (~_is_sentinel(rows)).to(torch.int32))
 
 
 def build_packed_from_reads(seqs: torch.Tensor, lengths: torch.Tensor,
@@ -289,13 +337,13 @@ def build_packed_from_reads_many(batches, k: int) -> list:
 
 def merge_packed(a: PackedTable, b: PackedTable) -> PackedTable:
     """Combine two PackedTables: merge + dedup (equal rows summed)."""
-    return _packed(*_merge_rows(a, b))
+    return packed_from_sorted(*_merge_rows(a, b))
 
 
 def merge_packed_plain(a: PackedTable, b: PackedTable) -> PackedTable:
     """``merge_packed`` through concat + sort whatever the row width and
     the device: what the kernel path is held against."""
-    return _packed(*_concat_sort(a, b))
+    return packed_from_sorted(*_concat_sort(a, b))
 
 
 def finalize(pt: PackedTable, k: int) -> KmerTable:
