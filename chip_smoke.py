@@ -12,7 +12,9 @@ Phases, each of which raises on failure:
 3. kernel against its plain PyTorch version on the card: the five cases
    of ``tests/test_merge_path.py`` and two sorted 32M-row runs (one
    counting build unit each); rows and counts must be equal position by
-   position; median CUDA-event times of both at 32M + 32M rows.  Then
+   position; median CUDA-event times of both at 32M + 32M rows, and of
+   the library call that orders the same rows, ``torch.sort(keys,
+   stable=True)`` on their folded int64 keys, alone.  Then
    its two other callers, ``dictionary.merge_packed`` and
    ``merge_finalize``, on two ``PackedTable``s of 16,777,216 rows each
    (a quarter of the rows shared) at K = 23: each must launch the kernel
@@ -83,19 +85,30 @@ Phases, each of which raises on failure:
    a copy of phase 6's contig files: .readOnContig, .ctg2Read and
    .peGrads byte for byte those of phase 7's one-device ``map -f -r -g``
    on the same files.  Seconds by phase, peak bytes and the number and
-   bytes of the exchanges between shards are printed.
+   bytes of the exchanges between shards are printed;
+9. the JAX package's end-to-end fixtures: the six fixtures of
+   ``tests/test_torch_e2e.py`` (the twin of ``tests/test_e2e.py``; K =
+   21, the gap-fill one K = 23 with ``-F -f -L 100`` and a ``scaff -S``
+   resume), loaded by path without pytest, each run through ``cli.main``
+   on ``cpu`` and on ``cuda``.  On ``cuda`` the JAX suite's recovery
+   checks must hold, every output file must equal the ``cpu`` run's
+   byte for byte (``.gz`` files decompressed, the prefix replaced), and
+   the pregraph edges must decode to the same sequences.  Each fixture
+   is one counting build unit, so the merge kernel is not launched here.
 
-The line before the last two is a JSON object of phase 8's numbers, the
-one before it of phase 7's, the one before that of the main path's; the
+The lines before the last two are JSON objects of phase 9's, phase 8's,
+phase 7's and the main path's numbers, last to first; the
 second-to-last describes the kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing
-of the JAX package (``soapdenovo_trans_tpu``); the reads come from
-``perf_e2e.synth``, which imports neither.
+of the JAX package (``soapdenovo_trans_tpu``), which it checks after
+phase 9; the reads come from ``perf_e2e.synth`` and the fixtures of
+phase 9, which import neither.
 """
 
 from __future__ import annotations
 
 import gzip
+import importlib.util
 import json
 import os
 import shutil
@@ -131,6 +144,7 @@ READ_TABLES = (".readInformation", ".readOnScaf", ".RPKM.Stat")
 RESUME_INPUTS = (".preGraphBasic",) + CONTIG_FILES
 DEVICES = ("cpu", "cuda")
 WINDOW_BUDGET = 1 << 24  # K-windows chopped on the card at a time
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(msg: str) -> None:
@@ -186,6 +200,8 @@ def check_merge(merge_path, a, ac, b, bc, n: int, m: int) -> int:
 
 
 def phase_kernel(merge_path, dev) -> dict:
+    from soapdenovo_trans_tpu_torch.ops import bits
+
     t0 = time.time()
     merge_path._load()
     log(f"[build] merge_path.cu -> sm_90a in {time.time() - t0:.2f}s")
@@ -210,14 +226,21 @@ def phase_kernel(merge_path, dev) -> dict:
     ms = cuda_ms(lambda: merge_path.merge_sorted_rows(a, ac, b, bc, n_t, n_t))
     plain_ms = cuda_ms(lambda: merge_path.merge_sorted_rows_plain(
         a, ac, b, bc, n_t, n_t))
+    # the library call that orders the same rows: the plain version's
+    # stable sort of the folded int64 keys (kernels/merge_path.py:145),
+    # without the masking, concatenation and count gather around it
+    keys = torch.cat([bits.fold2(a), bits.fold2(b)])
+    library_ms = cuda_ms(lambda: torch.sort(keys, stable=True))
+    del keys
     moved = 2 * 2 * UNIT_ROWS * (16 + 4)  # each row read once, written once
     log(f"[kernel] {UNIT_ROWS}+{UNIT_ROWS} rows: kernel {ms:.3f} ms "
-        f"({moved / ms / 1e9:.3f} TB/s), plain sort {plain_ms:.3f} ms")
+        f"({moved / ms / 1e9:.3f} TB/s), plain sort {plain_ms:.3f} ms, "
+        f"torch.sort of the folded keys alone {library_ms:.3f} ms")
     del a, ac, b, bc
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": None, **phase_packed(merge_path, dev),
+            "library_ms": library_ms, **phase_packed(merge_path, dev),
             "upload": phase_upload(dev)}
 
 
@@ -996,6 +1019,63 @@ def phase_mesh(cli, merge_path, smi: str, tmp: str, all_res, cfg: str,
     return launches, numbers
 
 
+def load_e2e():
+    """tests/test_torch_e2e.py loaded by path (no pytest run, no
+    conftest.py, which imports jax): its fixtures and helpers."""
+    path = os.path.join(REPO, "tests", "test_torch_e2e.py")
+    spec = importlib.util.spec_from_file_location("torch_e2e_fixtures", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_e2e(cli, merge_path, smi: str, tmp: str):
+    """Phase 9: the six fixtures of the JAX end-to-end suite (K = 21; the
+    gap-fill one K = 23) through the CLI on the card: the suite's
+    recovery checks, and every file equal to the port's CPU run's."""
+    from soapdenovo_trans_tpu_torch.graph import unitigs
+
+    e2e = load_e2e()
+    merge_path.LAUNCHES = 0
+    t_phase = time.time()
+    fixtures = {}
+    for name in e2e.FIXTURES:
+        folder = os.path.join(tmp, name)
+        os.makedirs(folder)
+        fx = e2e.build(name, folder)
+        outs, results, seconds = {}, {}, {}
+        for d in DEVICES:
+            os.environ["SOAPDENOVO_TORCH_DEVICE"] = d
+            outs[d] = os.path.join(folder, d, "asm")
+            torch.cuda.synchronize()
+            results[d], scafs, seconds[d] = e2e.run(cli, fx, outs[d])
+            torch.cuda.synchronize()
+        fx.check(outs["cuda"], scafs)
+        n_files = e2e.assert_same_outputs(outs["cpu"], outs["cuda"])
+        pre = {d: results[d][0].pregraph for d in DEVICES}
+        edges = [unitigs.edge_sequences(p.edges, p.table, fx.k)
+                 for p in pre.values()]
+        if edges[0] != edges[1]:
+            raise AssertionError(f"{name}: the edges decode differently on "
+                                 f"cuda and cpu")
+        res = results["cuda"][0]
+        fixtures[name] = {
+            "k": fx.k, "seconds": sum(seconds["cuda"]),
+            "stage_s": {**res.stage_seconds,
+                        **{"scaff -S": s for s in seconds["cuda"][1:]}},
+            "cpu_seconds": sum(seconds["cpu"]),
+            "edges": pre["cuda"].edges.n_edges,
+            "transcripts": sum(1 for h, _ in res.scaff.recs
+                               if h.startswith("scaffold")),
+            "records": len(res.scaff.recs),
+            "n50": res.scaff.stats.get("N50", 0), "files_compared": n_files}
+        log(f"[e2e] {name}: K={fx.k}, recovered on cuda in "
+            f"{sum(seconds['cuda']):.2f}s; {n_files} files equal to the cpu "
+            f"run's")
+    return {"card": smi, "phase_s": time.time() - t_phase,
+            "fixtures": fixtures, "merge_launches": merge_path.LAUNCHES}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1043,6 +1123,9 @@ def main() -> int:
             cli, merge_path, card, tmp, res, cfg, out, map_out)
         lap("mesh")
         del res
+    with tempfile.TemporaryDirectory() as tmp:
+        e2e_numbers = phase_e2e(cli, merge_path, card, tmp)
+        lap("e2e")
     log("[script] seconds of each phase, simulation and checks included: "
         + json.dumps(script_s))
     foreign = sorted(m for m in sys.modules
@@ -1055,6 +1138,7 @@ def main() -> int:
     log("[all] " + json.dumps(numbers))
     log("[flags] " + json.dumps(flag_numbers))
     log("[mesh] " + json.dumps(mesh_numbers))
+    log("[e2e] " + json.dumps(e2e_numbers))
     log(json.dumps({"kernels": [{
         "name": "merge_path", "route": "cuda",
         "source": "soapdenovo_trans_tpu_torch/csrc/merge_path.cu",

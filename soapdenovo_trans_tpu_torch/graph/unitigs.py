@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import dictionary, ranking
+from ..ops import bits, dictionary, ranking
 from . import dbg as dbg_mod
 
 MAX_EDGE_COV = 16000  # reference: src/inc/def.h:37
@@ -155,3 +155,22 @@ def condense(graph: dbg_mod.DBG,
     n_arcs = int(graph.exists.sum())
     return _extract_edges(graph, table, head, rank, is_head, n_edges,
                           n_arcs)
+
+
+def edge_sequences(eg: EdgeGraph, table: dictionary.KmerTable,
+                   k: int) -> list:
+    """Decode full edge sequences (the from-node's K-mer, reverse
+    complemented on the odd strand, then the appended bases) to a host
+    list of strings, for FASTA output and tests.  Tensors on a card are
+    read back with blocking copies."""
+    n = eg.n_edges
+    keys = table.keys.cpu().numpy()
+    pool = eg.seq_pool.cpu().numpy()
+    out = []
+    for fn, ln, off in zip(*(x[:n].cpu().tolist() for x in (
+            eg.from_node, eg.length, eg.seq_off))):
+        km = bits.kmer_to_string(keys[fn >> 1], k)
+        if fn & 1:
+            km = bits.revcomp_str(km)
+        out.append(km + bits.decode_seq(pool[off:off + ln]))
+    return out

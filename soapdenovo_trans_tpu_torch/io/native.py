@@ -18,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
@@ -28,6 +29,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 _lib = None
 _checked = False
+_LOCK = threading.Lock()
 
 
 def _build() -> str:
@@ -46,10 +48,19 @@ def _build() -> str:
 
 
 def _load() -> Optional[ctypes.CDLL]:
+    """The bound library, built at the first call; None without a
+    toolchain.  A caller that arrives during the first build (the
+    read-ahead thread of io/fastx) waits for it under the lock instead
+    of taking None and the Python decoder."""
     global _lib, _checked
-    if _checked:
+    with _LOCK:
+        if not _checked:
+            _checked = True
+            _lib = _bind()
         return _lib
-    _checked = True
+
+
+def _bind() -> Optional[ctypes.CDLL]:
     try:
         lib = ctypes.CDLL(_build())
     except (OSError, subprocess.SubprocessError):
@@ -71,8 +82,7 @@ def _load() -> Optional[ctypes.CDLL]:
         np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
         np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
         ctypes.c_long]
-    _lib = lib
-    return _lib
+    return lib
 
 
 def pack2bit(codes: np.ndarray, ncap: int

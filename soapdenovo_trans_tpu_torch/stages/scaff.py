@@ -30,9 +30,10 @@ sequences with the port's ``contig_merge.contig_sequences``; -F gap
 filling runs the port's ``graph/gapfill`` on the contigs' device.
 ``collect_gap_reads`` groups the placed reads by contig once, where the
 JAX package scans them once per junction side; each gap gets the same
-reads in the same order.  The JAX package's test-only dict pipeline
-(``delete_weak``, ``get_loci``, ``_oriented_locus``,
-``transcript_sequences``) has no copy here.
+reads in the same order.  The legacy dict pipeline (``delete_weak``,
+``get_loci``, ``_oriented_locus``, ``transcript_sequences``) is copied
+too: no stage runs it, and the tests hold ``build_structure`` against
+it as the JAX package's tests do.
 """
 
 from __future__ import annotations
@@ -152,6 +153,14 @@ class ConnGraph:
                 if not r["deleted"] and self.unique[f]]
 
 
+def delete_weak(g: ConnGraph, cutoff: int):
+    """deleteWeakCnt (transcriptome.c:470)."""
+    for f, outs in g.out.items():
+        for t, rec in outs.items():
+            if not rec["deleted"] and 0 < rec["weight"] < cutoff:
+                rec["deleted"] = True
+
+
 def delete_unlikely(g: ConnGraph, n_ctg: int, cut_off: int):
     """deleteUnlikelyCnt (-c, transcriptome.c:2202-2228): for every
     NON-unique contig with more than cut_off live links to unique
@@ -247,6 +256,73 @@ def _components(f, t, twin, n_ctg: int):
     touched |= touched[twin]
     lbl = lbl[rep]  # contigs share their rep's label
     return np.where(touched, lbl, -1)
+
+
+def _oriented_locus(g: ConnGraph, members: List[int],
+                    twin) -> List[int]:
+    """Oriented membership of one component: BFS from the smallest
+    member row in its stored orientation (matches get_loci's
+    ascending-row seed + claim-the-twin exploration)."""
+    member_set = set(members) | {int(twin[c]) for c in members}
+    visited = set()
+    comp: List[int] = []
+    for seed in sorted(members):
+        if seed in visited or int(twin[seed]) in visited:
+            continue
+        if not g.out_live(seed) and not g.in_live(seed):
+            visited.add(seed)
+            visited.add(int(twin[seed]))
+            continue
+        stack = [seed]
+        visited.add(seed)
+        visited.add(int(twin[seed]))
+        while stack:
+            x = stack.pop()
+            comp.append(x)
+            nbrs = [t for t, _ in g.out_live(x)] + \
+                   [f for f, _ in g.in_live(x)] + \
+                   [int(twin[t]) for t, _ in
+                    g.out_live(int(twin[x]))] + \
+                   [int(twin[f]) for f, _ in
+                    g.in_live(int(twin[x]))]
+            for t in nbrs:
+                if t not in visited and int(twin[t]) not in visited \
+                        and t in member_set:
+                    visited.add(t)
+                    visited.add(int(twin[t]))
+                    stack.append(t)
+    return comp
+
+
+def get_loci(g: ConnGraph, n_ctg: int) -> List[List[int]]:
+    """Oriented connected components over unique contigs
+    (getLociCount/getLoci + propagateComponent, :327-468): BFS through
+    live connections both ways; visiting a contig claims its twin."""
+    visited = np.zeros(n_ctg, bool)
+    loci = []
+    for c in range(n_ctg):
+        if visited[c] or not g.unique[c]:
+            continue
+        if not g.out_live(c) and not g.in_live(c):
+            visited[c] = visited[int(g.twin[c])] = True
+            continue  # isolated contigs become leftover singletons
+        comp, stack = [], [c]
+        visited[c] = visited[int(g.twin[c])] = True
+        while stack:
+            x = stack.pop()
+            comp.append(x)
+            nbrs = [t for t, _ in g.out_live(x)] + \
+                   [f for f, _ in g.in_live(x)] + \
+                   [int(g.twin[t]) for t, _ in
+                    g.out_live(int(g.twin[x]))] + \
+                   [int(g.twin[f]) for f, _ in
+                    g.in_live(int(g.twin[x]))]
+            for t in nbrs:
+                if not visited[t] and g.unique[t]:
+                    visited[t] = visited[int(g.twin[t])] = True
+                    stack.append(t)
+        loci.append(comp)
+    return loci
 
 
 def _trace_along_connection(g: ConnGraph, dest: int, start: int,
@@ -575,6 +651,31 @@ def build_structure(conn, twin, full_len, unique, cvg,
         for locus in _loci_in(gl, cands, twin):
             graph_loci.append((gl, locus))
     return build_transcripts(graph_loci, cvg, params)
+
+
+def transcript_sequences(transcripts: List[Transcript], seqs: List[str],
+                         used_flags: Optional[np.ndarray] = None
+                         ) -> List[Tuple[str, str]]:
+    """Assemble scaffold sequences: member contigs joined with N gaps
+    exactly like the reference's -F-off rendering (outputScafSeq,
+    prlReadFillGap.c:637-656): gapN = CONNECT gap (min 1) Ns, then the
+    next contig trimmed by cutHead=K.  k is inferred from nothing here,
+    so callers that need the trim should use run_scaff; this helper
+    keeps the legacy full-join for quick tests."""
+    recs = []
+    for idx, tr in enumerate(transcripts, start=1):
+        parts = []
+        for i, c in enumerate(tr.contigs):
+            parts.append(seqs[c])
+            if i < len(tr.gaps) and tr.gaps[i] > 0:
+                parts.append("N" * tr.gaps[i])
+            if used_flags is not None:
+                used_flags[c] = True
+        seq = "".join(parts)
+        header = (f"scaffold{idx} {len(tr.contigs)} {len(seq)} "
+                  f"Locus_{tr.locus}_{tr.index} {tr.kind}")
+        recs.append((header, seq))
+    return recs
 
 
 def _host(nt):

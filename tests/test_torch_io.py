@@ -1,10 +1,14 @@
 """Port parity: the host readers the port carries as its own copies
 (``io/libconfig``, ``io/bam``, ``io/native``, ``io/fastx``) give the
 same config and the same read batches as the JAX package's, and the
-port's pregraph-file loader gives the JAX loader's state."""
+port's pregraph-file loader gives the JAX loader's state; the native
+decoder's first build is safe to race."""
 
 import dataclasses
 import gzip
+import shutil
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -118,3 +122,35 @@ def test_load_pregraph_files_matches_jax(k, tmp_path, monkeypatch):
     assert ta.n == int(ja.n) > 0
     for field in ("from_ed", "to_ed", "mult"):
         eq(getattr(ja, field), getattr(ta, field), ta.n, field)
+
+
+def test_native_load_is_thread_safe(tmp_path, monkeypatch):
+    """Threads that call ``_load`` while the first one builds the library
+    wait for it: all get the same library, none gets None."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ toolchain")
+    monkeypatch.setattr(tnative, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_checked", False)
+    n = 12
+    start = threading.Barrier(n)
+    got = [None] * n
+
+    def call(i):
+        start.wait(timeout=60)
+        got[i] = tnative._load()
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert got[0] is not None
+    assert all(lib is got[0] for lib in got)
+    assert len(list((tmp_path / "build").glob("libfastx_*.so"))) == 1

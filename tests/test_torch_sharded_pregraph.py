@@ -31,6 +31,7 @@ from soapdenovo_trans_tpu.stages import pregraph as jpg
 from soapdenovo_trans_tpu_torch import cli as tcli
 from soapdenovo_trans_tpu_torch import convert
 from soapdenovo_trans_tpu_torch.graph import arcs as tarcs
+from soapdenovo_trans_tpu_torch.graph import unitigs as tunitigs
 from soapdenovo_trans_tpu_torch.io import fastx
 from soapdenovo_trans_tpu_torch.parallel import sharded_count as tsc
 from soapdenovo_trans_tpu_torch.parallel import sharded_pregraph as tsp
@@ -247,11 +248,8 @@ def branch_reads():
 
 
 def edge_set(res, k):
-    """Sorted edge sequences of a port PregraphResult (decoded by the
-    JAX package's helper from the converted arrays)."""
-    return sorted(junitigs.edge_sequences(
-        convert.to_numpy(res.edges, junitigs.EdgeGraph),
-        convert.to_numpy(res.table, jdict.KmerTable), k))
+    """Sorted edge sequences of a port PregraphResult."""
+    return sorted(tunitigs.edge_sequences(res.edges, res.table, k))
 
 
 def arc_rows(res):
