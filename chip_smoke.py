@@ -8,8 +8,15 @@ Phases, each of which raises on failure:
 
 1. device and environment: the card's name and power limit (from
    ``nvidia-smi``), torch and CUDA versions; no card is an error;
-2. build the merge-path kernel from ``soapdenovo_trans_tpu_torch/csrc``;
-3. kernel against its plain PyTorch version on the card: the five cases
+2. build both kernels from ``soapdenovo_trans_tpu_torch/csrc``, the
+   merge-path kernel and the LCS kernel, one ``nvcc`` each, started
+   together; each build's seconds are printed;
+3. each kernel against its plain PyTorch version on the card.  The LCS
+   kernel (``kernels/lcs.py``): the cases of
+   ``tests/test_torch_lcs_gpu.py`` (loaded by path), exact, and the
+   median CUDA-event times of the kernel and the plain version at a
+   wave's 1,024 x 384, at la = lb = 384 and at random wave lengths, with
+   the byte bound.  The merge kernel: the five cases
    of ``tests/test_merge_path.py`` and two sorted 32M-row runs (one
    counting build unit each); rows and counts must be equal position by
    position; median CUDA-event times of both at 32M + 32M rows, and of
@@ -35,20 +42,27 @@ Phases, each of which raises on failure:
    names its own path; ``.gz`` files decompressed); and ``all`` on a
    mesh of two logical shards of each device (``cpu,cpu`` and
    ``cuda:0,cuda:0``) must write the files of the one-device ``all``;
+   the cuda runs must launch the LCS kernel (every contig stage's
+   Tour-Bus waves go through it);
 5. pregraph at real size: ``pregraph -K 23`` on 500,000 simulated
    read pairs (2x100 bp, insert 300, 5,000 transcripts of 1,500 bp,
    half with SNP isoforms, 0.2% errors, seed 0; 1,000,000 pairs until
    the mesh path's phase took its seconds) through the CLI entry
-   point, with the kernel's launch count reset just before; the table
+   point, with the kernels' launch counts reset just before; the table
    must count every valid K-window, the .kmerFreq histogram must sum to
    the distinct k-mers, and edges and preArcs must exist;
 6. the main path: ``all -K 23`` through ``cli.main`` on the same
    500,000 pairs, with the launch
-   count reset just before (``all`` resets the peak-memory statistics
-   before each stage).  The contig stage at 1,000,000 pairs takes about
-   950 s on an H100 (31,426 Tour-Bus waves of 30 ms), and at 600,000
-   pairs 300-540 s (11,809 launch-bound waves of 25-46 ms, depending on
-   the host), more than this script's time allows.  Checks: the .contig headers and sequence
+   counts reset just before (``all`` resets the peak-memory statistics
+   before each stage).  The LCS kernel must launch once a Tour-Bus
+   wave; the inputs of every 512th call are kept (16 calls of 0.8 MB,
+   which the peak bytes of contig, map and scaff then include; the
+   script prints their bytes) and, after the run, held against the
+   plain version and timed (the kernel at the lengths the main path
+   gives it).  Until the LCS kernel the contig
+   stage at 1,000,000 pairs took about 950 s on an H100 (31,426 waves
+   of 30 ms), more than this script's time allows.  Checks: the
+   .contig headers and sequence
    lengths agree with .ContigIndex; .updated.edge declares as many
    edges as there are ids; the sequences are ACGT only; every K-window
    of every contig made of one pregraph edge is a k-mer of the pregraph
@@ -59,7 +73,7 @@ Phases, each of which raises on failure:
    K-window of every scaffold is a K-window of some contig (both
    strands; the contig k-mers are sorted and looked up on the card);
    the .scafStatistics totals agree with .scafSeq;
-7. the options at full width, with the launch count reset just before:
+7. the options at full width, with the launch counts reset just before:
    on copies of phase 6's contig files, ``map -f -r -g`` and ``scaff -F
    -R -g -s cfg`` (gap filling from the 1,000,000 reads), then ``scaff
    -S -F`` on a copy, which must give the same .scafSeq.  Checks: gaps
@@ -72,11 +86,12 @@ Phases, each of which raises on failure:
    transcripts, seed 0: two counting build units, so one launch of the
    merge kernel; at 300,000 pairs Tour-Bus after splitting runs 4,792
    waves, 123-159 s, too long beside phase 6): .path holds as many records as the recorder
-   counted, .markOnEdge one line per edge, and the repeat edges split
-   are reported.  Seconds of every part and peak bytes are printed;
+   counted, .markOnEdge one line per edge, the repeat edges split
+   are reported, and the LCS kernel launched once a Tour-Bus wave of
+   ``contig -R``.  Seconds of every part and peak bytes are printed;
 8. the mesh path at full width, on four logical shards of the one
    card (``SOAPDENOVO_TORCH_DEVICE=cuda:0,cuda:0,cuda:0,cuda:0``; no
-   multi-card measurement), with the launch count reset just before:
+   multi-card measurement), with the launch counts reset just before:
    ``pregraph -K 23`` through ``cli.main`` on phase 6's 500,000 pairs.
    Against phase 6's one-device pregraph files: .kmerFreq byte for
    byte; the same number of distinct k-mers, edges and preArcs; the same
@@ -94,11 +109,12 @@ Phases, each of which raises on failure:
    checks must hold, every output file must equal the ``cpu`` run's
    byte for byte (``.gz`` files decompressed, the prefix replaced), and
    the pregraph edges must decode to the same sequences.  Each fixture
-   is one counting build unit, so the merge kernel is not launched here.
+   is one counting build unit, so the merge kernel is not launched here;
+   the LCS kernel launches once a wave of their contig stages.
 
 The lines before the last two are JSON objects of phase 9's, phase 8's,
 phase 7's and the main path's numbers, last to first; the
-second-to-last describes the kernel; the last line is
+second-to-last describes the two kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing
 of the JAX package (``soapdenovo_trans_tpu``), which it checks after
 phase 9; the reads come from ``perf_e2e.synth`` and the fixtures of
@@ -131,6 +147,9 @@ REPS_TX = 2_200
 UNIT_ROWS = 32_000_000
 PACKED_ROWS = 1 << 24
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# the CUDA cores' 32-bit integer rate: the data sheet's 67 TFLOP/s of
+# float32 counts an FMA as two, and an SM has 64 INT32 lanes to 128 FP32
+INT32_OPS_PER_S = 67e12 / 4
 STAGE_FILES = (".kmerFreq", ".vertex", ".preArc", ".preGraphBasic",
                ".peGrads", ".edge.gz")
 CONTIG_FILES = (".contig", ".ContigIndex", ".updated.edge", ".Arc")
@@ -199,12 +218,148 @@ def check_merge(merge_path, a, ac, b, bc, n: int, m: int) -> int:
     return err
 
 
+def phase_build(kernels) -> dict:
+    """Builds every kernel's source at once, one nvcc each, all started
+    together (the script's time limit does not grow with the kernels),
+    then loads them; returns each build's seconds by source file."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed_build(module):
+        t0 = time.time()
+        module.build()
+        return time.time() - t0
+
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        seconds = list(pool.map(timed_build, kernels))
+    for module, sec in zip(kernels, seconds):
+        module._load()
+        log(f"[build] {os.path.relpath(module.SOURCE, REPO)} -> sm_90a in "
+            f"{sec:.2f}s")
+    return {os.path.basename(m.SOURCE): sec
+            for m, sec in zip(kernels, seconds)}
+
+
+def lcs_bound_ms(la, lb, cap: int) -> tuple:
+    """(bound ms, what sets it) of one LCS call on this call's lengths.
+    The bytes it must move: each row's a[:min(la, cap)] and
+    b[:min(lb, cap)], and la, lb and out (one int64 each a row), over the
+    memory rate.  The operations: min(la, cap)·ceil(min(lb, cap)/64)
+    64-bit word steps, each four 64-bit operations (and, add, and-not,
+    or) done as eight 32-bit ones, over the CUDA cores' integer rate."""
+    p = la.shape[0]
+    n_a, n_b = la.clamp(0, cap), lb.clamp(0, cap)
+    moved = 24 * p + int(n_a.sum()) + int(n_b.sum())
+    steps = int((n_a * ((n_b + 63) // 64)).sum())
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = 8 * steps / INT32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def check_lcs(lcs, a, b, la, lb, cap: int) -> int:
+    """LCS kernel vs plain version on one batch; returns the max abs
+    error, which must be 0."""
+    got = lcs.lcs_scores(a, b, la, lb, cap)
+    want = lcs.lcs_scores_plain(a, b, la, lb, cap)
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        raise AssertionError(f"lcs shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    err = int((got - want).abs().max()) if got.numel() else 0
+    if err:
+        raise AssertionError(f"LCS kernel differs from plain version "
+                             f"(P={a.shape[0]}, cap={cap}): max abs err "
+                             f"{err}")
+    return err
+
+
+def time_lcs(lcs, a, b, la, lb, cap: int, reps: int = 10) -> dict:
+    bound, by = lcs_bound_ms(la, lb, cap)
+    return {"p": a.shape[0], "cap": cap,
+            "mean_la": float(la.float().mean()),
+            "ms": cuda_ms(lambda: lcs.lcs_scores(a, b, la, lb, cap), reps),
+            "plain_ms": cuda_ms(lambda: lcs.lcs_scores_plain(
+                a, b, la, lb, cap), reps=3, warm=1),
+            "bound_ms": bound, "bound_by": by}
+
+
+def phase_lcs(lcs, dev) -> dict:
+    """The LCS kernel against its plain version on the card test's
+    cases, and timed at a wave's 1,024 x 384."""
+    cases = load_test("test_torch_lcs_gpu.py")
+    err = 0
+    for i, (name, p, cap) in enumerate(cases.GPU_CASES):
+        a, b, la, lb, cap = cases.gpu_case(name, p, cap, 100 + i)
+        err = max(err, check_lcs(lcs, *cases.to_device(a, b, la, lb, dev),
+                                 cap))
+        log(f"[lcs] {name} P={p} cap={cap}: equal to plain version "
+            f"(exact, tolerance 0)")
+    times = {}
+    p, cap = cases.WAVE_P, cases.WAVE_CAP
+    for name in ("full", "wave"):
+        a, b, la, lb, _ = cases.gpu_case(name, p, cap, 7)
+        t = cases.to_device(a, b, la, lb, dev)
+        err = max(err, check_lcs(lcs, *t, cap))
+        times[f"{name}_{p}x{cap}"] = time_lcs(lcs, *t, cap)
+    log("[lcs] " + json.dumps(times))
+    return {"max_abs_err": err, "synthetic": times}
+
+
+class LcsRecorder:
+    """Wraps ``kernels.lcs.lcs_scores`` while the main path runs and
+    keeps the inputs of every ``every``-th call (references only: no
+    copy, no host read).  They stay allocated until the run ends, so
+    keep few: the stages' peak bytes hold them."""
+
+    def __init__(self, lcs, every: int = 512):
+        self.lcs, self.every, self.calls, self.kept = lcs, every, 0, []
+        self.real = lcs.lcs_scores
+
+    def __enter__(self):
+        def recorded(a, b, la, lb, cap):
+            if self.calls % self.every == 0:
+                self.kept.append((a, b, la, lb, cap))
+            self.calls += 1
+            return self.real(a, b, la, lb, cap)
+
+        self.lcs.lcs_scores = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.lcs.lcs_scores = self.real
+
+
+def lcs_on_wave_inputs(lcs, kept) -> dict:
+    """The LCS kernel on the inputs kept from the main path's waves:
+    each held against the plain version, the kernel timed on each, the
+    plain version on the one with the most DP cells."""
+    err, ms, bounds, compared, lengths = 0, [], [], [], []
+    for a, b, la, lb, cap in kept:
+        err = max(err, check_lcs(lcs, a, b, la, lb, cap))
+        ms.append(cuda_ms(lambda: lcs.lcs_scores(a, b, la, lb, cap),
+                          reps=5))
+        bounds.append(lcs_bound_ms(la, lb, cap))
+        live = la > 0
+        compared.append(int(live.sum()))
+        lengths.extend(la[live].tolist())
+    cells = [int((x[2] * x[3]).sum()) for x in kept]
+    top = max(range(len(kept)), key=cells.__getitem__)
+    plain_ms = cuda_ms(lambda: lcs.lcs_scores_plain(*kept[top]), reps=3,
+                       warm=1)
+    bound_ms, bound_by = sorted(bounds)[len(bounds) // 2]
+    kept_bytes = sum(x.nbytes for call in kept for x in call[:4])
+    return {"calls_kept": len(kept), "kept_bytes": kept_bytes,
+            "max_abs_err": err,
+            "ms": statistics.median(ms), "ms_max": max(ms),
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "compared_rows_median": statistics.median(compared),
+            "compared_rows_max": max(compared),
+            "la_median": statistics.median(lengths) if lengths else 0,
+            "la_max": max(lengths, default=0)}
+
+
 def phase_kernel(merge_path, dev) -> dict:
     from soapdenovo_trans_tpu_torch.ops import bits
-
-    t0 = time.time()
-    merge_path._load()
-    log(f"[build] merge_path.cu -> sm_90a in {time.time() - t0:.2f}s")
 
     err = 0
     for n, m, dup in [(5000, 3000, False), (4096, 4096, True),
@@ -227,7 +382,7 @@ def phase_kernel(merge_path, dev) -> dict:
     plain_ms = cuda_ms(lambda: merge_path.merge_sorted_rows_plain(
         a, ac, b, bc, n_t, n_t))
     # the library call that orders the same rows: the plain version's
-    # stable sort of the folded int64 keys (kernels/merge_path.py:145),
+    # stable sort of the folded int64 keys (kernels/merge_path.py:119),
     # without the masking, concatenation and count gather around it
     keys = torch.cat([bits.fold2(a), bits.fold2(b)])
     library_ms = cuda_ms(lambda: torch.sort(keys, stable=True))
@@ -410,9 +565,10 @@ def copy_prefix(src: str, dst: str, exts=None) -> None:
             shutil.copy(os.path.join(folder, f), dst + f[len(name):])
 
 
-def phase_cpu_gpu(cli, pg_stage, perf_e2e, tmp: str) -> None:
+def phase_cpu_gpu(cli, lcs, pg_stage, perf_e2e, tmp: str) -> int:
     cfg = perf_e2e.synth(tmp, n_tx=40, n_pairs=3000, seed=1)
     default_rows = pg_stage.TARGET_BUILD_ROWS
+    lcs.LAUNCHES = 0
     pg_stage.TARGET_BUILD_ROWS = 1  # 4096-read units: several merges
     try:
         for k in (K, 31):
@@ -470,6 +626,11 @@ def phase_cpu_gpu(cli, pg_stage, perf_e2e, tmp: str) -> None:
                 f"one-device files")
     finally:
         pg_stage.TARGET_BUILD_ROWS = default_rows
+    if lcs.LAUNCHES < 1:
+        raise AssertionError("the cuda runs never launched the LCS kernel")
+    log(f"[parity] the cuda runs launched the LCS kernel {lcs.LAUNCHES} "
+        f"times")
+    return lcs.LAUNCHES
 
 
 def valid_windows(cfg_path: str, k: int) -> int:
@@ -490,15 +651,15 @@ def valid_windows(cfg_path: str, k: int) -> int:
     return total
 
 
-def phase_slice(cli, merge_path, cfg: str, tmp: str) -> int:
+def phase_slice(cli, merge_path, lcs, cfg: str, tmp: str):
     out = os.path.join(tmp, "slice")
     torch.cuda.reset_peak_memory_stats()
-    merge_path.LAUNCHES = 0
+    merge_path.LAUNCHES = lcs.LAUNCHES = 0
     t0 = time.time()
     res = run_cli(cli, cfg, out, K, "cuda")
     torch.cuda.synchronize()
     stage_s = time.time() - t0
-    launches = merge_path.LAUNCHES
+    launches, lcs_launches = merge_path.LAUNCHES, lcs.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     if launches < 1:
         raise AssertionError("main path never launched the merge kernel")
@@ -521,7 +682,7 @@ def phase_slice(cli, merge_path, cfg: str, tmp: str) -> int:
     log("[slice] " + json.dumps({
         "pairs": CONTIG_PAIRS, "stage_s": stage_s,
         "phase_s": res.phase_seconds, "peak_bytes": peak}))
-    return launches
+    return launches, lcs_launches
 
 
 def read_contig_fasta(path: str):
@@ -678,21 +839,32 @@ def check_scaffolds(out: str, contig_recs):
     return scaf
 
 
-def phase_all(cli, merge_path, smi: str, tmp: str, cfg: str):
+def phase_all(cli, merge_path, lcs, smi: str, tmp: str, cfg: str):
     from soapdenovo_trans_tpu_torch.graph import contig_merge
     from soapdenovo_trans_tpu_torch.ops import dictionary, kmer
     from soapdenovo_trans_tpu_torch.stages import pelinks
 
     out = os.path.join(tmp, "all")
     dev = torch.device("cuda")
-    merge_path.LAUNCHES = 0
+    merge_path.LAUNCHES = lcs.LAUNCHES = 0
     t0 = time.time()
-    res = run_stage(cli, ["all", "-s", cfg, "-K", str(K), "-o", out], "cuda")
+    with LcsRecorder(lcs) as recorder:
+        res = run_stage(cli, ["all", "-s", cfg, "-K", str(K), "-o", out],
+                        "cuda")
     all_s = time.time() - t0
-    launches = merge_path.LAUNCHES
+    launches, lcs_launches = merge_path.LAUNCHES, lcs.LAUNCHES
     if launches < 1:
         raise AssertionError("the main path never launched the merge "
                              "kernel")
+    if not lcs_launches == recorder.calls == res.contig.tourbus["waves"]:
+        raise AssertionError(
+            f"the LCS kernel launched {lcs_launches} times in "
+            f"{recorder.calls} calls over {res.contig.tourbus['waves']} "
+            f"Tour-Bus waves, not once a wave")
+    lcs_wave = lcs_on_wave_inputs(lcs, recorder.kept)
+    del recorder
+    log("[all] the LCS kernel on the inputs of every 512th wave: "
+        + json.dumps(lcs_wave))
 
     # the contig stage
     result, table, k = res.contig, res.pregraph.table, K
@@ -764,13 +936,13 @@ def phase_all(cli, merge_path, smi: str, tmp: str, cfg: str):
                   "n50": sres.stats.get("N50", 0),
                   "transcript_n50": n50([len(s) for s in scaffolds]),
                   "phase_s": sres.phase_seconds},
-        "merge_launches": launches}
+        "merge_launches": launches, "lcs_launches": lcs_launches}
     peaks = ", ".join(f"{s} {b / 1e9:.2f}" for s, b in res.peak_bytes.items())
     log(f"[all] {all_s:.1f}s: " + ", ".join(
         f"{s} {t:.1f}s" for s, t in res.stage_seconds.items()) +
         f"; peak GB {peaks}; {tb['waves']} Tour-Bus waves of "
         f"{tb['s_per_wave'] * 1e3:.2f} ms on {smi}")
-    return launches, numbers, res, out
+    return (launches, lcs_launches, lcs_wave), numbers, res, out
 
 
 def timed_stage(cli, argv, seconds: dict, peaks: dict, name: str):
@@ -801,7 +973,7 @@ def read_in_gap_records(path: str) -> int:
     return n
 
 
-def phase_flags(cli, merge_path, perf_e2e, smi: str, tmp: str, all_res,
+def phase_flags(cli, merge_path, lcs, perf_e2e, smi: str, tmp: str, all_res,
                 cfg: str, all_out: str):
     """Phase 7: the options at full width."""
     from soapdenovo_trans_tpu_torch.io import stagefiles
@@ -811,7 +983,7 @@ def phase_flags(cli, merge_path, perf_e2e, smi: str, tmp: str, all_res,
     seconds, peaks = {}, {}
     table = all_res.pregraph.table
     base_n = sum(s.count("N") for _, s in all_res.scaff.recs)
-    merge_path.LAUNCHES = 0
+    merge_path.LAUNCHES = lcs.LAUNCHES = 0
     t_phase = time.time()
 
     # gap reads, read tables and gap filling on phase 6's contigs
@@ -896,9 +1068,13 @@ def phase_flags(cli, merge_path, perf_e2e, smi: str, tmp: str, all_res,
     if cres.reps_split is None:
         raise AssertionError("contig -R did not read .path")
     check_contig_files(reps, cres.contigs.n)
-    launches = merge_path.LAUNCHES
+    launches, lcs_launches = merge_path.LAUNCHES, lcs.LAUNCHES
     if launches < 1:
         raise AssertionError("phase 7 never launched the merge kernel")
+    if lcs_launches != cres.tourbus["waves"]:
+        raise AssertionError(
+            f"the LCS kernel launched {lcs_launches} times over "
+            f"{cres.tourbus['waves']} Tour-Bus waves of contig -R")
     numbers = {
         "card": smi, "pairs": CONTIG_PAIRS, "phase_s": time.time() - t_phase,
         "seconds": seconds, "peak_bytes": peaks,
@@ -915,13 +1091,15 @@ def phase_flags(cli, merge_path, perf_e2e, smi: str, tmp: str, all_res,
                  "split": cres.reps_split, "contigs": cres.contigs.n,
                  "pregraph_phase_s": pres.phase_seconds,
                  "contig_phase_s": cres.phase_seconds,
-                 "waves": cres.tourbus["waves"]},
-        "merge_launches": launches}
+                 "waves": cres.tourbus["waves"],
+                 "s_per_wave": cres.tourbus["s_per_wave"]},
+        "merge_launches": launches, "lcs_launches": lcs_launches}
     log(f"[flags] {numbers['phase_s']:.1f}s: " + ", ".join(
         f"{name} {sec:.1f}s" for name, sec in seconds.items()) +
         f"; {pres.path_reads} read paths, {cres.reps_split} repeat edges "
-        f"split on {smi}")
-    return launches, numbers, out
+        f"split; contig -R {cres.tourbus['waves']} Tour-Bus waves of "
+        f"{cres.tourbus['s_per_wave'] * 1e3:.2f} ms on {smi}")
+    return (launches, lcs_launches), numbers, out
 
 
 def edge_records(path: str) -> list:
@@ -936,7 +1114,7 @@ def edge_records(path: str) -> list:
     return sorted("\n".join(r) for r in recs)
 
 
-def phase_mesh(cli, merge_path, smi: str, tmp: str, all_res, cfg: str,
+def phase_mesh(cli, merge_path, lcs, smi: str, tmp: str, all_res, cfg: str,
                all_out: str, map_out: str):
     """Phase 8: pregraph and map on MESH_SHARDS logical shards of the
     card, against the one-device files of phases 6 and 7."""
@@ -946,7 +1124,7 @@ def phase_mesh(cli, merge_path, smi: str, tmp: str, all_res, cfg: str,
     t_phase = time.time()
 
     out = os.path.join(tmp, "mesh")
-    merge_path.LAUNCHES = 0
+    merge_path.LAUNCHES = lcs.LAUNCHES = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -1007,7 +1185,7 @@ def phase_mesh(cli, merge_path, smi: str, tmp: str, all_res, cfg: str,
         "map": {"mapped": mres.mapped, "groups": mres.groups,
                 "phase_s": mres.phase_seconds, "exchanges": mres.exchanges,
                 "exchange_bytes": mres.exchange_bytes},
-        "merge_launches": launches}
+        "merge_launches": launches, "lcs_launches": lcs.LAUNCHES}
     log(f"[mesh] {numbers['phase_s']:.1f}s: pregraph "
         f"{seconds['pregraph']:.1f}s (" + ", ".join(
             f"{n} {t:.1f}" for n, t in res.phase_seconds.items()) +
@@ -1016,29 +1194,31 @@ def phase_mesh(cli, merge_path, smi: str, tmp: str, all_res, cfg: str,
         f"{seconds['map']:.1f}s, its three files as on one device, "
         f"{mres.exchanges} exchanges of {mres.exchange_bytes / 1e9:.2f} GB; "
         f"{MESH_SHARDS} logical shards on one card, {smi}")
-    return launches, numbers
+    return (launches, lcs.LAUNCHES), numbers
 
 
-def load_e2e():
-    """tests/test_torch_e2e.py loaded by path (no pytest run, no
-    conftest.py, which imports jax): its fixtures and helpers."""
-    path = os.path.join(REPO, "tests", "test_torch_e2e.py")
-    spec = importlib.util.spec_from_file_location("torch_e2e_fixtures", path)
+def load_test(name: str):
+    """A file of tests/ loaded by path (no pytest run, no conftest.py,
+    which imports jax): its fixtures and helpers."""
+    path = os.path.join(REPO, "tests", name)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_" + name[:-3], path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
 
 
-def phase_e2e(cli, merge_path, smi: str, tmp: str):
+def phase_e2e(cli, merge_path, lcs, smi: str, tmp: str):
     """Phase 9: the six fixtures of the JAX end-to-end suite (K = 21; the
     gap-fill one K = 23) through the CLI on the card: the suite's
     recovery checks, and every file equal to the port's CPU run's."""
     from soapdenovo_trans_tpu_torch.graph import unitigs
 
-    e2e = load_e2e()
-    merge_path.LAUNCHES = 0
+    e2e = load_test("test_torch_e2e.py")
+    merge_path.LAUNCHES = lcs.LAUNCHES = 0
     t_phase = time.time()
     fixtures = {}
+    waves = 0
     for name in e2e.FIXTURES:
         folder = os.path.join(tmp, name)
         os.makedirs(folder)
@@ -1059,6 +1239,7 @@ def phase_e2e(cli, merge_path, smi: str, tmp: str):
             raise AssertionError(f"{name}: the edges decode differently on "
                                  f"cuda and cpu")
         res = results["cuda"][0]
+        waves += res.contig.tourbus["waves"]
         fixtures[name] = {
             "k": fx.k, "seconds": sum(seconds["cuda"]),
             "stage_s": {**res.stage_seconds,
@@ -1072,8 +1253,12 @@ def phase_e2e(cli, merge_path, smi: str, tmp: str):
         log(f"[e2e] {name}: K={fx.k}, recovered on cuda in "
             f"{sum(seconds['cuda']):.2f}s; {n_files} files equal to the cpu "
             f"run's")
+    if lcs.LAUNCHES != waves:
+        raise AssertionError(f"the LCS kernel launched {lcs.LAUNCHES} "
+                             f"times over {waves} Tour-Bus waves on cuda")
     return {"card": smi, "phase_s": time.time() - t_phase,
-            "fixtures": fixtures, "merge_launches": merge_path.LAUNCHES}
+            "fixtures": fixtures, "merge_launches": merge_path.LAUNCHES,
+            "lcs_launches": lcs.LAUNCHES}
 
 
 def main() -> int:
@@ -1090,7 +1275,7 @@ def main() -> int:
 
     import perf_e2e
     from soapdenovo_trans_tpu_torch import cli
-    from soapdenovo_trans_tpu_torch.kernels import merge_path
+    from soapdenovo_trans_tpu_torch.kernels import lcs, merge_path
     from soapdenovo_trans_tpu_torch.stages import pregraph as pg_stage
 
     dev = torch.device("cuda")
@@ -1101,30 +1286,33 @@ def main() -> int:
         clock.append(time.time())
         script_s[name] = clock[-1] - clock[-2]
 
+    build_s = phase_build((merge_path, lcs))
+    lap("build")
+    lcs_timing = phase_lcs(lcs, dev)
     timing = phase_kernel(merge_path, dev)
     lap("kernel")
     card = smi.splitlines()[0]
     with tempfile.TemporaryDirectory() as tmp:
-        phase_cpu_gpu(cli, pg_stage, perf_e2e, tmp)
+        parity_lcs = phase_cpu_gpu(cli, lcs, pg_stage, perf_e2e, tmp)
         lap("cpu_gpu")
     with tempfile.TemporaryDirectory() as tmp:
         cfg = perf_e2e.synth(tmp, n_tx=CONTIG_TX, n_pairs=CONTIG_PAIRS,
                              seed=0)
         lap("simulate")
-        slice_launches = phase_slice(cli, merge_path, cfg, tmp)
+        slice_launches = phase_slice(cli, merge_path, lcs, cfg, tmp)
         lap("pregraph")
-        launches, numbers, res, out = phase_all(cli, merge_path, card, tmp,
-                                                cfg)
+        (launches, lcs_launches, lcs_wave), numbers, res, out = phase_all(
+            cli, merge_path, lcs, card, tmp, cfg)
         lap("all")
         flag_launches, flag_numbers, map_out = phase_flags(
-            cli, merge_path, perf_e2e, card, tmp, res, cfg, out)
+            cli, merge_path, lcs, perf_e2e, card, tmp, res, cfg, out)
         lap("options")
         mesh_launches, mesh_numbers = phase_mesh(
-            cli, merge_path, card, tmp, res, cfg, out, map_out)
+            cli, merge_path, lcs, card, tmp, res, cfg, out, map_out)
         lap("mesh")
         del res
     with tempfile.TemporaryDirectory() as tmp:
-        e2e_numbers = phase_e2e(cli, merge_path, card, tmp)
+        e2e_numbers = phase_e2e(cli, merge_path, lcs, card, tmp)
         lap("e2e")
     log("[script] seconds of each phase, simulation and checks included: "
         + json.dumps(script_s))
@@ -1139,16 +1327,33 @@ def main() -> int:
     log("[flags] " + json.dumps(flag_numbers))
     log("[mesh] " + json.dumps(mesh_numbers))
     log("[e2e] " + json.dumps(e2e_numbers))
+    by_path = {"pregraph_500k": slice_launches,
+               "all_500k": (launches, lcs_launches),
+               "options_500k_220k": flag_launches,
+               "mesh_4_shards_500k": mesh_launches}
     log(json.dumps({"kernels": [{
         "name": "merge_path", "route": "cuda",
         "source": "soapdenovo_trans_tpu_torch/csrc/merge_path.cu",
         "replaces": "soapdenovo_trans_tpu/kernels/merge_path.py:284",
         "launches": launches,
-        "launches_by_path": {"pregraph_500k": slice_launches,
-                             "all_500k": launches,
-                             "options_500k_220k": flag_launches,
-                             "mesh_4_shards_500k": mesh_launches},
-        **timing}]}))
+        "launches_by_path": {path: n[0] for path, n in by_path.items()},
+        "build_s": build_s["merge_path.cu"], **timing}, {
+        "name": "lcs", "route": "cuda",
+        "source": "soapdenovo_trans_tpu_torch/csrc/lcs.cu",
+        "replaces": "soapdenovo_trans_tpu/graph/tourbus.py:77",
+        "replaces_what": "_lcs_scores, the lax.scan at :95 inside the "
+                         "jitted _wave; a device loop, not a Pallas kernel",
+        "launches": lcs_launches,
+        "launches_by_path": {
+            "cpu_gpu_parity": parity_lcs,
+            **{path: n[1] for path, n in by_path.items()},
+            "e2e_fixtures": e2e_numbers["lcs_launches"]},
+        "max_abs_err": max(lcs_timing["max_abs_err"],
+                           lcs_wave["max_abs_err"]),
+        "ms": lcs_wave["ms"], "plain_ms": lcs_wave["plain_ms"],
+        "bound_ms": lcs_wave["bound_ms"], "bound_by": lcs_wave["bound_by"],
+        "library_ms": None, "build_s": build_s["lcs.cu"],
+        "wave_inputs": lcs_wave, "synthetic": lcs_timing["synthetic"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -35,6 +35,7 @@ from typing import Tuple
 
 import torch
 
+from ..kernels import lcs
 from . import arcs as arcs_mod
 from . import unitigs
 from .edge_clean import _gather_or, _scatter_true, rebuild_arcs
@@ -56,17 +57,9 @@ def _params_for(merge_level: int) -> Tuple[int, int]:
 def _lcs_scores(a, b, la, lb, cap: int):
     """LCS length between a[:la] and b[:lb] per batch row — the
     identity measure for compareSequences' F-matrix check
-    (bubble.c:425-497): matches / max(len) >= 0.9 accepts."""
-    pos = torch.arange(cap, device=a.device)[None, :]
-    ar = torch.where(pos < la[:, None], a, 254)
-    br = torch.where(pos < lb[:, None], b, 255)
-    row = torch.zeros((a.shape[0], cap + 1), dtype=torch.int64,
-                      device=a.device)
-    for i in range(cap):
-        cand = row[:, :-1] + (ar[:, i:i + 1] == br)
-        upper = torch.maximum(cand, row[:, 1:])
-        row = torch.cat([row[:, :1], torch.cummax(upper, 1).values], 1)
-    return row[:, -1]
+    (bubble.c:425-497): matches / max(len) >= 0.9 accepts.  One launch
+    of the LCS kernel on the card (``kernels/lcs.py``)."""
+    return lcs.lcs_scores(a, b, la, lb, cap)
 
 
 def _take(x, idx):

@@ -5,7 +5,7 @@ merge_path.py`` (``_merge_device``; ``pl.pallas_call`` at :284) on the
 counting path, ``dictionary.merge_runs``.  The CUDA source is
 ``csrc/merge_path.cu`` in this package; it is compiled for ``sm_90a``
 with ``nvcc`` at first use into ``_build/`` and loaded with ``ctypes``
-(a plain C interface: no PyTorch headers, so a build takes seconds).
+(``kernels/_nvcc.py``).
 
 ``merge_sorted_rows`` launches the kernel for CUDA tensors and runs the
 plain PyTorch version (``merge_sorted_rows_plain``) only for CPU
@@ -17,55 +17,29 @@ two agree row for row and count for count.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 
 import torch
 
 from ..ops import bits
+from . import _nvcc
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "merge_path.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = os.path.join(_nvcc.CSRC, "merge_path.cu")
 
 LAUNCHES = 0  # kernel launches since the last reset (plain runs not counted)
 _LIB = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the merge-path kernel needs "
-                           "the CUDA toolkit")
-    return path
-
-
 def build() -> str:
     """Compile csrc/merge_path.cu for sm_90a (once per source content)
     and return the shared library's path."""
-    with open(SOURCE, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"merge_path_{digest}.so")
-    if os.path.exists(so):
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{res.stderr}")
-    os.replace(tmp, so)
-    return so
+    return _nvcc.build(SOURCE)
 
 
 def _load():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build())
+        lib = _nvcc.load(SOURCE)
         lib.merge_path_launch.restype = ctypes.c_int
         lib.merge_path_launch.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -28,6 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import perf_e2e  # noqa: E402
+import profsum  # noqa: E402
 from soapdenovo_trans_tpu_torch import cli  # noqa: E402
 
 
@@ -37,10 +37,7 @@ def main() -> int:
         return 1
     pairs = int(sys.argv[1]) if len(sys.argv) > 1 else 100_000
     shards = int(sys.argv[2]) if len(sys.argv) > 2 else 4
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    card = profsum.card()
     os.environ["SOAPDENOVO_TORCH_DEVICE"] = ",".join(["cuda:0"] * shards)
     with tempfile.TemporaryDirectory() as tmp:
         cfg = perf_e2e.synth(tmp, n_tx=pairs // 100, n_pairs=pairs, seed=0)
@@ -55,23 +52,13 @@ def main() -> int:
             res = cli.main(argv)
             torch.cuda.synchronize()
         wall = time.time() - t0
-    rows = [(e.key, e.device_time_total / 1e6, e.count)
-            for e in prof.key_averages() if e.device_time_total > 0
-            and e.device_type == torch.autograd.DeviceType.CUDA]
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
+    summary = profsum.device_summary(prof, wall)
     numbers = {
         "card": card, "pairs": pairs, "shards": shards,
         "what": f"{shards} logical shards on one card, profiler on",
         "stage_s": wall, "phase_s": res.phase_seconds,
-        "device_busy_s": busy, "device_busy_share": busy / wall,
-        "exchanges": res.exchanges,
-        "top_kernels": [{"name": n[:80], "seconds": s, "launches": c}
-                        for n, s, c in rows[:12]],
-        "kernel_launches": sum(r[2] for r in rows)}
-    for row in numbers["top_kernels"]:
-        print(f"[prof_mesh] {row['seconds']:8.3f}s {row['launches']:7d}x "
-              f"{row['name']}")
+        "exchanges": res.exchanges, **summary}
+    profsum.print_top("prof_mesh", summary)
     print(json.dumps(numbers))
     return 0
 

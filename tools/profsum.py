@@ -1,0 +1,48 @@
+"""What the profiling tools share: the card's name and power limit, and
+the device summary of a ``torch.profiler`` run (kernels by device time,
+the device-busy share)."""
+
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+
+def card() -> str:
+    """The first card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+
+
+def device_summary(prof, wall: float, top: int = 12) -> dict:
+    """The CUDA kernels of ``prof`` by device time: the device-busy
+    seconds and share of ``wall`` seconds (the sum of kernel time over
+    wall time), the kernel launches, and the ``top`` kernels with the
+    most device time (name, seconds, launches)."""
+    rows = [(e.key, e.device_time_total / 1e6, e.count)
+            for e in prof.key_averages() if e.device_time_total > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return {"device_busy_s": busy, "device_busy_share": busy / wall,
+            "kernel_launches": sum(r[2] for r in rows),
+            "top_kernels": [{"name": n[:80], "seconds": s, "launches": c}
+                            for n, s, c in rows[:top]]}
+
+
+def kernel_time(prof, name: str) -> tuple:
+    """(device seconds, launches) of the kernels of ``prof`` whose name
+    holds ``name``."""
+    rows = [e for e in prof.key_averages() if name in e.key
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.device_time_total for e in rows) / 1e6,
+            sum(e.count for e in rows))
+
+
+def print_top(tag: str, summary: dict) -> None:
+    for row in summary["top_kernels"]:
+        print(f"[{tag}] {row['seconds']:8.3f}s {row['launches']:7d}x "
+              f"{row['name']}")
