@@ -8,15 +8,22 @@ Phases, each of which raises on failure:
 
 1. device and environment: the card's name and power limit (from
    ``nvidia-smi``), torch and CUDA versions; no card is an error;
-2. build both kernels from ``soapdenovo_trans_tpu_torch/csrc``, the
-   merge-path kernel and the LCS kernel, one ``nvcc`` each, started
-   together; each build's seconds are printed;
-3. each kernel against its plain PyTorch version on the card.  The LCS
-   kernel (``kernels/lcs.py``): the cases of
-   ``tests/test_torch_lcs_gpu.py`` (loaded by path), exact, and the
-   median CUDA-event times of the kernel and the plain version at a
-   wave's 1,024 x 384, at la = lb = 384 and at random wave lengths, with
-   the byte bound.  The merge kernel: the five cases
+2. build both sources of ``soapdenovo_trans_tpu_torch/csrc``, the
+   merge-path kernel and the Tour-Bus kernels (``lcs.cu``: the identity
+   check and the standalone LCS), one ``nvcc`` each, started together;
+   each build's seconds are printed;
+3. each kernel against its plain PyTorch version on the card.  The
+   identity kernel (``kernels/lcs.identity_check``, the wave's path
+   lengths, gate, LCS and verdict in one launch): the identity cases of
+   ``tests/test_torch_lcs_gpu.py`` (loaded by path), all five outputs
+   exact, and the median CUDA-event times of the kernel and the plain
+   version, with the host time of a call and the bound, at a real
+   wave's shape (12 of 1,024 rows compared, paths of 24 bases) and at
+   1,024 x 384 with full paths.  The standalone LCS kernel
+   (``lcs_scores``, no longer on the main path): the LCS cases of the
+   same file, exact, and its times at a wave's 1,024 x 384, at la = lb
+   = 384 and at random wave lengths, with the bound.  The merge kernel:
+   the five cases
    of ``tests/test_merge_path.py`` and two sorted 32M-row runs (one
    counting build unit each); rows and counts must be equal position by
    position; median CUDA-event times of both at 32M + 32M rows, and of
@@ -42,8 +49,9 @@ Phases, each of which raises on failure:
    names its own path; ``.gz`` files decompressed); and ``all`` on a
    mesh of two logical shards of each device (``cpu,cpu`` and
    ``cuda:0,cuda:0``) must write the files of the one-device ``all``;
-   the cuda runs must launch the LCS kernel (every contig stage's
-   Tour-Bus waves go through it);
+   the cuda runs must launch the identity kernel once a Tour-Bus wave of
+   their contig stages (the standalone LCS kernel's launches, now 0,
+   are printed);
 5. pregraph at real size: ``pregraph -K 23`` on 500,000 simulated
    read pairs (2x100 bp, insert 300, 5,000 transcripts of 1,500 bp,
    half with SNP isoforms, 0.2% errors, seed 0; 1,000,000 pairs until
@@ -54,11 +62,13 @@ Phases, each of which raises on failure:
 6. the main path: ``all -K 23`` through ``cli.main`` on the same
    500,000 pairs, with the launch
    counts reset just before (``all`` resets the peak-memory statistics
-   before each stage).  The LCS kernel must launch once a Tour-Bus
-   wave; the inputs of every 512th call are kept (16 calls of 0.8 MB,
-   which the peak bytes of contig, map and scaff then include; the
+   before each stage).  The identity kernel must launch once a Tour-Bus
+   wave (the standalone LCS kernel's launches, now 0, are printed); the
+   inputs of every 512th call are kept (16 calls: their node lists and
+   found flags, and the graph's tensors, which every wave shares; the
+   peak bytes of contig, map and scaff then include them, and the
    script prints their bytes) and, after the run, held against the
-   plain version and timed (the kernel at the lengths the main path
+   plain version and timed (the kernel on the waves the main path
    gives it).  Until the LCS kernel the contig
    stage at 1,000,000 pairs took about 950 s on an H100 (31,426 waves
    of 30 ms), more than this script's time allows.  Checks: the
@@ -87,8 +97,8 @@ Phases, each of which raises on failure:
    merge kernel; at 300,000 pairs Tour-Bus after splitting runs 4,792
    waves, 123-159 s, too long beside phase 6): .path holds as many records as the recorder
    counted, .markOnEdge one line per edge, the repeat edges split
-   are reported, and the LCS kernel launched once a Tour-Bus wave of
-   ``contig -R``.  Seconds of every part and peak bytes are printed;
+   are reported, and the identity kernel launched once a Tour-Bus wave
+   of ``contig -R``.  Seconds of every part and peak bytes are printed;
 8. the mesh path at full width, on four logical shards of the one
    card (``SOAPDENOVO_TORCH_DEVICE=cuda:0,cuda:0,cuda:0,cuda:0``; no
    multi-card measurement), with the launch counts reset just before:
@@ -110,11 +120,12 @@ Phases, each of which raises on failure:
    byte for byte (``.gz`` files decompressed, the prefix replaced), and
    the pregraph edges must decode to the same sequences.  Each fixture
    is one counting build unit, so the merge kernel is not launched here;
-   the LCS kernel launches once a wave of their contig stages.
+   the identity kernel launches once a wave of their contig stages.
 
 The lines before the last two are JSON objects of phase 9's, phase 8's,
 phase 7's and the main path's numbers, last to first; the
-second-to-last describes the two kernels; the last line is
+second-to-last describes the three kernels (the standalone LCS one with
+``"on_main_path": false``); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing
 of the JAX package (``soapdenovo_trans_tpu``), which it checks after
 phase 9; the reads come from ``perf_e2e.synth`` and the fixtures of
@@ -305,57 +316,165 @@ def phase_lcs(lcs, dev) -> dict:
     return {"max_abs_err": err, "synthetic": times}
 
 
-class LcsRecorder:
-    """Wraps ``kernels.lcs.lcs_scores`` while the main path runs and
+def host_us(fn, reps: int = 50) -> float:
+    """Host microseconds a call of fn() takes to return (the enqueue,
+    the device not waited for), after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def identity_bound_ms(inputs, outputs) -> tuple:
+    """(bound ms, what sets it) of one identity-check call on this call's
+    inputs and plain outputs.  The bytes it must move: the two node
+    lists, found, a length for each listed node (an id in 0..E-1) and an
+    offset for each listed node of a compared row, the compared rows'
+    bases, and the outputs (three int64 and two bool a row), over the
+    memory rate.  The operations: the LCS's word steps, sum(len_a ·
+    ceil(len_b/64)) over the compared rows, eight 32-bit operations each
+    (as ``lcs_bound_ms``), over the CUDA cores' integer rate."""
+    maj, mnr, found, length, _seq_off, _pool, _diff, _cap = inputs
+    len_a, len_b, compared = outputs[:3]
+    (c, m), e = maj.shape, length.shape[0]
+    listed = ((maj >= 0) & (maj < e)).sum(1) + ((mnr >= 0) & (mnr < e)).sum(1)
+    moved = (16 * c * m + c + 8 * int(listed.sum())
+             + 8 * int(listed[compared].sum())
+             + int((len_a + len_b)[compared].sum()) + 26 * c)
+    steps = int((len_a * ((len_b + 63) // 64))[compared].sum())
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = 8 * steps / INT32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def check_identity(lcs, inputs) -> tuple:
+    """The identity kernel vs its plain version on one call's inputs;
+    returns (max abs error, which must be 0, and the plain outputs)."""
+    got = lcs.identity_check(*inputs)
+    want = lcs.identity_check_plain(*inputs)
+    torch.cuda.synchronize()
+    err = 0
+    for name, g, w in zip(("len_a", "len_b", "compared", "ok", "lcs"), got,
+                          want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"identity {name}: {tuple(g.shape)} "
+                                 f"{g.dtype} != {tuple(w.shape)} {w.dtype}")
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    if err:
+        raise AssertionError(f"identity kernel differs from plain version "
+                             f"(C={inputs[0].shape[0]}, m="
+                             f"{inputs[0].shape[1]}, seq_cap={inputs[7]}): "
+                             f"max abs err {err}")
+    return err, want
+
+
+def time_identity(lcs, inputs, want, reps: int = 10) -> dict:
+    bound, by = identity_bound_ms(inputs, want)
+    compared = want[2]
+    return {"c": inputs[0].shape[0], "m": inputs[0].shape[1],
+            "seq_cap": inputs[7], "compared_rows": int(compared.sum()),
+            "mean_len_a": float(want[0][compared].float().mean())
+            if compared.any() else 0.0,
+            "ms": cuda_ms(lambda: lcs.identity_check(*inputs), reps),
+            "host_us": host_us(lambda: lcs.identity_check(*inputs)),
+            "plain_ms": cuda_ms(lambda: lcs.identity_check_plain(*inputs),
+                                reps=3, warm=1),
+            "bound_ms": bound, "bound_by": by}
+
+
+def phase_identity(lcs, dev) -> dict:
+    """The identity kernel against its plain version on the card test's
+    cases, and timed at a real wave's shape (12 of 1,024 rows compared,
+    paths of 24 bases) and at 1,024 x 384 with full paths."""
+    cases = load_test("test_torch_lcs_gpu.py")
+    err = 0
+    for i, (name, c, m, cap, diff) in enumerate(cases.IDENTITY_CASES):
+        xs = cases.identity_to_device(
+            cases.identity_case(name, c, m, cap, diff, 200 + i), dev)
+        err = max(err, check_identity(lcs, (*xs, diff, cap))[0])
+        log(f"[identity] {name} C={c} m={m} seq_cap={cap} diff={diff}: "
+            f"equal to plain version (exact, tolerance 0)")
+    times = {}
+    c, m, cap, diff = cases.WAVE_P, 3, cases.WAVE_CAP, 2
+    for name in ("wave", "full"):
+        inputs = (*cases.identity_to_device(
+            cases.identity_case(name, c, m, cap, diff, 7), dev), diff, cap)
+        e, want = check_identity(lcs, inputs)
+        err = max(err, e)
+        times[f"{name}_{c}x{cap}"] = time_identity(lcs, inputs, want)
+    log("[identity] " + json.dumps(times))
+    return {"max_abs_err": err, "synthetic": times}
+
+
+class IdentityRecorder:
+    """Wraps ``kernels.lcs.identity_check`` while the main path runs and
     keeps the inputs of every ``every``-th call (references only: no
-    copy, no host read).  They stay allocated until the run ends, so
-    keep few: the stages' peak bytes hold them."""
+    copy, no host read; the graph tensors are the wave's own, the same
+    for every wave between repeat splits).  They stay allocated until
+    the run ends, so keep few: the stages' peak bytes hold them."""
 
     def __init__(self, lcs, every: int = 512):
         self.lcs, self.every, self.calls, self.kept = lcs, every, 0, []
-        self.real = lcs.lcs_scores
+        self.real = lcs.identity_check
 
     def __enter__(self):
-        def recorded(a, b, la, lb, cap):
+        def recorded(*inputs):
             if self.calls % self.every == 0:
-                self.kept.append((a, b, la, lb, cap))
+                self.kept.append(inputs)
             self.calls += 1
-            return self.real(a, b, la, lb, cap)
+            return self.real(*inputs)
 
-        self.lcs.lcs_scores = recorded
+        self.lcs.identity_check = recorded
         return self
 
     def __exit__(self, *exc):
-        self.lcs.lcs_scores = self.real
+        self.lcs.identity_check = self.real
 
 
-def lcs_on_wave_inputs(lcs, kept) -> dict:
-    """The LCS kernel on the inputs kept from the main path's waves:
+def identity_on_wave_inputs(lcs, kept) -> dict:
+    """The identity kernel on the inputs kept from the main path's waves:
     each held against the plain version, the kernel timed on each, the
-    plain version on the one with the most DP cells."""
-    err, ms, bounds, compared, lengths = 0, [], [], [], []
-    for a, b, la, lb, cap in kept:
-        err = max(err, check_lcs(lcs, a, b, la, lb, cap))
-        ms.append(cuda_ms(lambda: lcs.lcs_scores(a, b, la, lb, cap),
-                          reps=5))
-        bounds.append(lcs_bound_ms(la, lb, cap))
-        live = la > 0
-        compared.append(int(live.sum()))
-        lengths.extend(la[live].tolist())
-    cells = [int((x[2] * x[3]).sum()) for x in kept]
-    top = max(range(len(kept)), key=cells.__getitem__)
-    plain_ms = cuda_ms(lambda: lcs.lcs_scores_plain(*kept[top]), reps=3,
+    plain version and the host time of a call on the one with the most
+    compared bases."""
+    err, ms, bounds, compared, lengths, bases = 0, [], [], [], [], []
+    for inputs in kept:
+        e, want = check_identity(lcs, inputs)
+        err = max(err, e)
+        ms.append(cuda_ms(lambda: lcs.identity_check(*inputs), reps=5))
+        bounds.append(identity_bound_ms(inputs, want))
+        cmp_ = want[2]
+        compared.append(int(cmp_.sum()))
+        lengths.extend(want[0][cmp_].tolist())
+        bases.append(int((want[0] + want[1])[cmp_].sum()))
+    top = kept[max(range(len(kept)), key=bases.__getitem__)]
+    plain_ms = cuda_ms(lambda: lcs.identity_check_plain(*top), reps=3,
                        warm=1)
     bound_ms, bound_by = sorted(bounds)[len(bounds) // 2]
-    kept_bytes = sum(x.nbytes for call in kept for x in call[:4])
-    return {"calls_kept": len(kept), "kept_bytes": kept_bytes,
+    tensors = {x.data_ptr(): x.nbytes for call in kept for x in call
+               if isinstance(x, torch.Tensor)}
+    return {"calls_kept": len(kept), "kept_bytes": sum(tensors.values()),
             "max_abs_err": err,
             "ms": statistics.median(ms), "ms_max": max(ms),
+            "host_us": host_us(lambda: lcs.identity_check(*top)),
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "compared_rows_median": statistics.median(compared),
             "compared_rows_max": max(compared),
             "la_median": statistics.median(lengths) if lengths else 0,
             "la_max": max(lengths, default=0)}
+
+
+def tourbus_waves(res) -> int:
+    """The Tour-Bus waves of a CLI result: a contig stage's (result,
+    table, k) or ``all``'s AllResult; 0 for the other stages."""
+    contig = res[0] if isinstance(res, tuple) else getattr(res, "contig",
+                                                             None)
+    return contig.tourbus.get("waves", 0) if contig is not None else 0
 
 
 def phase_kernel(merge_path, dev) -> dict:
@@ -565,10 +684,19 @@ def copy_prefix(src: str, dst: str, exts=None) -> None:
             shutil.copy(os.path.join(folder, f), dst + f[len(name):])
 
 
-def phase_cpu_gpu(cli, lcs, pg_stage, perf_e2e, tmp: str) -> int:
+def phase_cpu_gpu(cli, lcs, pg_stage, perf_e2e, tmp: str) -> tuple:
     cfg = perf_e2e.synth(tmp, n_tx=40, n_pairs=3000, seed=1)
     default_rows = pg_stage.TARGET_BUILD_ROWS
-    lcs.LAUNCHES = 0
+    lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
+    waves = 0
+
+    def stage(argv, device):  # counts the card's Tour-Bus waves
+        nonlocal waves
+        res = run_stage(cli, argv, device)
+        if device.startswith("cuda"):
+            waves += tourbus_waves(res)
+        return res
+
     pg_stage.TARGET_BUILD_ROWS = 1  # 4096-read units: several merges
     try:
         for k in (K, 31):
@@ -581,25 +709,22 @@ def phase_cpu_gpu(cli, lcs, pg_stage, perf_e2e, tmp: str) -> int:
             meshed = {d: os.path.join(tmp, f"mesh_k{k}_{d}")
                       for d in DEVICES}
             for d in DEVICES:
-                run_stage(cli, ["pregraph", "-s", cfg, "-K", str(k), "-R",
-                                "-o", staged[d]], d)
+                stage(["pregraph", "-s", cfg, "-K", str(k), "-R", "-o",
+                       staged[d]], d)
             for argv in (["contig", "-R", "-g"],
                          ["map", "-s", cfg, "-f", "-r", "-g"],
                          ["scaff", "-s", cfg, "-F", "-R", "-g"]):
                 for d in DEVICES:
-                    run_stage(cli, argv + [staged[d]], d)
+                    stage(argv + [staged[d]], d)
             for d in DEVICES:
                 copy_prefix(staged[d], resumed[d])
-                run_stage(cli, ["scaff", "-s", cfg, "-S", "-F", "-g",
-                                resumed[d]], d)
-                run_stage(cli, ["all", "-s", cfg, "-K", str(k), "-o",
-                                whole[d]], d)
-                run_stage(cli, ["all", "-s", cfg, "-K", str(k), "-F", "-f",
-                                "-R", "-o", flagged[d]], d)
+                stage(["scaff", "-s", cfg, "-S", "-F", "-g", resumed[d]], d)
+                stage(["all", "-s", cfg, "-K", str(k), "-o", whole[d]], d)
+                stage(["all", "-s", cfg, "-K", str(k), "-F", "-f", "-R",
+                       "-o", flagged[d]], d)
                 # two logical shards of the same device
-                run_stage(cli, ["all", "-s", cfg, "-K", str(k), "-o",
-                                meshed[d]],
-                          "cpu,cpu" if d == "cpu" else "cuda:0,cuda:0")
+                stage(["all", "-s", cfg, "-K", str(k), "-o", meshed[d]],
+                      "cpu,cpu" if d == "cpu" else "cuda:0,cuda:0")
             extras = GAP_READ_FILES + READ_TABLES
             assert_same_files(staged["cpu"], staged["cuda"],
                               ALL_FILES + (".newContigIndex",) + PATH_FILES
@@ -626,11 +751,14 @@ def phase_cpu_gpu(cli, lcs, pg_stage, perf_e2e, tmp: str) -> int:
                 f"one-device files")
     finally:
         pg_stage.TARGET_BUILD_ROWS = default_rows
-    if lcs.LAUNCHES < 1:
-        raise AssertionError("the cuda runs never launched the LCS kernel")
-    log(f"[parity] the cuda runs launched the LCS kernel {lcs.LAUNCHES} "
-        f"times")
-    return lcs.LAUNCHES
+    if waves < 1 or lcs.IDENTITY_LAUNCHES != waves:
+        raise AssertionError(f"the cuda runs launched the identity kernel "
+                             f"{lcs.IDENTITY_LAUNCHES} times over {waves} "
+                             f"Tour-Bus waves")
+    log(f"[parity] the cuda runs launched the identity kernel "
+        f"{lcs.IDENTITY_LAUNCHES} times, once a Tour-Bus wave; the "
+        f"standalone LCS kernel {lcs.LAUNCHES} times")
+    return lcs.LAUNCHES, lcs.IDENTITY_LAUNCHES
 
 
 def valid_windows(cfg_path: str, k: int) -> int:
@@ -654,14 +782,14 @@ def valid_windows(cfg_path: str, k: int) -> int:
 def phase_slice(cli, merge_path, lcs, cfg: str, tmp: str):
     out = os.path.join(tmp, "slice")
     torch.cuda.reset_peak_memory_stats()
-    merge_path.LAUNCHES = lcs.LAUNCHES = 0
+    merge_path.LAUNCHES = lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
     t0 = time.time()
     res = run_cli(cli, cfg, out, K, "cuda")
     torch.cuda.synchronize()
     stage_s = time.time() - t0
-    launches, lcs_launches = merge_path.LAUNCHES, lcs.LAUNCHES
+    launches = (merge_path.LAUNCHES, lcs.LAUNCHES, lcs.IDENTITY_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    if launches < 1:
+    if launches[0] < 1:
         raise AssertionError("main path never launched the merge kernel")
 
     want = valid_windows(cfg, K)
@@ -678,11 +806,11 @@ def phase_slice(cli, merge_path, lcs, cfg: str, tmp: str):
         raise AssertionError("no edges or no preArcs")
     log(f"[slice] {got} k-mer windows, {res.table.n} distinct, "
         f"{res.edges.n_edges} edges, {res.arcs.n} preArcs; "
-        f"merge launches {launches}")
+        f"merge launches {launches[0]}")
     log("[slice] " + json.dumps({
         "pairs": CONTIG_PAIRS, "stage_s": stage_s,
         "phase_s": res.phase_seconds, "peak_bytes": peak}))
-    return launches, lcs_launches
+    return launches
 
 
 def read_contig_fasta(path: str):
@@ -846,25 +974,27 @@ def phase_all(cli, merge_path, lcs, smi: str, tmp: str, cfg: str):
 
     out = os.path.join(tmp, "all")
     dev = torch.device("cuda")
-    merge_path.LAUNCHES = lcs.LAUNCHES = 0
+    merge_path.LAUNCHES = lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
     t0 = time.time()
-    with LcsRecorder(lcs) as recorder:
+    with IdentityRecorder(lcs) as recorder:
         res = run_stage(cli, ["all", "-s", cfg, "-K", str(K), "-o", out],
                         "cuda")
     all_s = time.time() - t0
-    launches, lcs_launches = merge_path.LAUNCHES, lcs.LAUNCHES
-    if launches < 1:
+    launches = (merge_path.LAUNCHES, lcs.LAUNCHES, lcs.IDENTITY_LAUNCHES)
+    if launches[0] < 1:
         raise AssertionError("the main path never launched the merge "
                              "kernel")
-    if not lcs_launches == recorder.calls == res.contig.tourbus["waves"]:
+    if not launches[2] == recorder.calls == res.contig.tourbus["waves"]:
         raise AssertionError(
-            f"the LCS kernel launched {lcs_launches} times in "
+            f"the identity kernel launched {launches[2]} times in "
             f"{recorder.calls} calls over {res.contig.tourbus['waves']} "
             f"Tour-Bus waves, not once a wave")
-    lcs_wave = lcs_on_wave_inputs(lcs, recorder.kept)
+    log(f"[all] identity kernel launches {launches[2]} = Tour-Bus waves; "
+        f"standalone LCS kernel launches {launches[1]}")
+    id_wave = identity_on_wave_inputs(lcs, recorder.kept)
     del recorder
-    log("[all] the LCS kernel on the inputs of every 512th wave: "
-        + json.dumps(lcs_wave))
+    log("[all] the identity kernel on the inputs of every 512th wave: "
+        + json.dumps(id_wave))
 
     # the contig stage
     result, table, k = res.contig, res.pregraph.table, K
@@ -936,13 +1066,14 @@ def phase_all(cli, merge_path, lcs, smi: str, tmp: str, cfg: str):
                   "n50": sres.stats.get("N50", 0),
                   "transcript_n50": n50([len(s) for s in scaffolds]),
                   "phase_s": sres.phase_seconds},
-        "merge_launches": launches, "lcs_launches": lcs_launches}
+        "merge_launches": launches[0], "lcs_launches": launches[1],
+        "identity_launches": launches[2]}
     peaks = ", ".join(f"{s} {b / 1e9:.2f}" for s, b in res.peak_bytes.items())
     log(f"[all] {all_s:.1f}s: " + ", ".join(
         f"{s} {t:.1f}s" for s, t in res.stage_seconds.items()) +
         f"; peak GB {peaks}; {tb['waves']} Tour-Bus waves of "
         f"{tb['s_per_wave'] * 1e3:.2f} ms on {smi}")
-    return (launches, lcs_launches, lcs_wave), numbers, res, out
+    return (launches, id_wave), numbers, res, out
 
 
 def timed_stage(cli, argv, seconds: dict, peaks: dict, name: str):
@@ -983,7 +1114,7 @@ def phase_flags(cli, merge_path, lcs, perf_e2e, smi: str, tmp: str, all_res,
     seconds, peaks = {}, {}
     table = all_res.pregraph.table
     base_n = sum(s.count("N") for _, s in all_res.scaff.recs)
-    merge_path.LAUNCHES = lcs.LAUNCHES = 0
+    merge_path.LAUNCHES = lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
     t_phase = time.time()
 
     # gap reads, read tables and gap filling on phase 6's contigs
@@ -1068,12 +1199,12 @@ def phase_flags(cli, merge_path, lcs, perf_e2e, smi: str, tmp: str, all_res,
     if cres.reps_split is None:
         raise AssertionError("contig -R did not read .path")
     check_contig_files(reps, cres.contigs.n)
-    launches, lcs_launches = merge_path.LAUNCHES, lcs.LAUNCHES
-    if launches < 1:
+    launches = (merge_path.LAUNCHES, lcs.LAUNCHES, lcs.IDENTITY_LAUNCHES)
+    if launches[0] < 1:
         raise AssertionError("phase 7 never launched the merge kernel")
-    if lcs_launches != cres.tourbus["waves"]:
+    if launches[2] != cres.tourbus["waves"]:
         raise AssertionError(
-            f"the LCS kernel launched {lcs_launches} times over "
+            f"the identity kernel launched {launches[2]} times over "
             f"{cres.tourbus['waves']} Tour-Bus waves of contig -R")
     numbers = {
         "card": smi, "pairs": CONTIG_PAIRS, "phase_s": time.time() - t_phase,
@@ -1093,13 +1224,16 @@ def phase_flags(cli, merge_path, lcs, perf_e2e, smi: str, tmp: str, all_res,
                  "contig_phase_s": cres.phase_seconds,
                  "waves": cres.tourbus["waves"],
                  "s_per_wave": cres.tourbus["s_per_wave"]},
-        "merge_launches": launches, "lcs_launches": lcs_launches}
+        "merge_launches": launches[0], "lcs_launches": launches[1],
+        "identity_launches": launches[2]}
     log(f"[flags] {numbers['phase_s']:.1f}s: " + ", ".join(
         f"{name} {sec:.1f}s" for name, sec in seconds.items()) +
         f"; {pres.path_reads} read paths, {cres.reps_split} repeat edges "
         f"split; contig -R {cres.tourbus['waves']} Tour-Bus waves of "
-        f"{cres.tourbus['s_per_wave'] * 1e3:.2f} ms on {smi}")
-    return (launches, lcs_launches), numbers, out
+        f"{cres.tourbus['s_per_wave'] * 1e3:.2f} ms on {smi}; identity "
+        f"kernel launches {launches[2]}, standalone LCS kernel "
+        f"{launches[1]}")
+    return launches, numbers, out
 
 
 def edge_records(path: str) -> list:
@@ -1124,7 +1258,7 @@ def phase_mesh(cli, merge_path, lcs, smi: str, tmp: str, all_res, cfg: str,
     t_phase = time.time()
 
     out = os.path.join(tmp, "mesh")
-    merge_path.LAUNCHES = lcs.LAUNCHES = 0
+    merge_path.LAUNCHES = lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -1185,7 +1319,8 @@ def phase_mesh(cli, merge_path, lcs, smi: str, tmp: str, all_res, cfg: str,
         "map": {"mapped": mres.mapped, "groups": mres.groups,
                 "phase_s": mres.phase_seconds, "exchanges": mres.exchanges,
                 "exchange_bytes": mres.exchange_bytes},
-        "merge_launches": launches, "lcs_launches": lcs.LAUNCHES}
+        "merge_launches": launches, "lcs_launches": lcs.LAUNCHES,
+        "identity_launches": lcs.IDENTITY_LAUNCHES}
     log(f"[mesh] {numbers['phase_s']:.1f}s: pregraph "
         f"{seconds['pregraph']:.1f}s (" + ", ".join(
             f"{n} {t:.1f}" for n, t in res.phase_seconds.items()) +
@@ -1194,7 +1329,7 @@ def phase_mesh(cli, merge_path, lcs, smi: str, tmp: str, all_res, cfg: str,
         f"{seconds['map']:.1f}s, its three files as on one device, "
         f"{mres.exchanges} exchanges of {mres.exchange_bytes / 1e9:.2f} GB; "
         f"{MESH_SHARDS} logical shards on one card, {smi}")
-    return (launches, lcs.LAUNCHES), numbers
+    return (launches, lcs.LAUNCHES, lcs.IDENTITY_LAUNCHES), numbers
 
 
 def load_test(name: str):
@@ -1215,7 +1350,7 @@ def phase_e2e(cli, merge_path, lcs, smi: str, tmp: str):
     from soapdenovo_trans_tpu_torch.graph import unitigs
 
     e2e = load_test("test_torch_e2e.py")
-    merge_path.LAUNCHES = lcs.LAUNCHES = 0
+    merge_path.LAUNCHES = lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
     t_phase = time.time()
     fixtures = {}
     waves = 0
@@ -1253,12 +1388,16 @@ def phase_e2e(cli, merge_path, lcs, smi: str, tmp: str):
         log(f"[e2e] {name}: K={fx.k}, recovered on cuda in "
             f"{sum(seconds['cuda']):.2f}s; {n_files} files equal to the cpu "
             f"run's")
-    if lcs.LAUNCHES != waves:
-        raise AssertionError(f"the LCS kernel launched {lcs.LAUNCHES} "
-                             f"times over {waves} Tour-Bus waves on cuda")
+    if lcs.IDENTITY_LAUNCHES != waves:
+        raise AssertionError(f"the identity kernel launched "
+                             f"{lcs.IDENTITY_LAUNCHES} times over {waves} "
+                             f"Tour-Bus waves on cuda")
+    log(f"[e2e] identity kernel launches {lcs.IDENTITY_LAUNCHES} = Tour-Bus "
+        f"waves; standalone LCS kernel launches {lcs.LAUNCHES}")
     return {"card": smi, "phase_s": time.time() - t_phase,
             "fixtures": fixtures, "merge_launches": merge_path.LAUNCHES,
-            "lcs_launches": lcs.LAUNCHES}
+            "lcs_launches": lcs.LAUNCHES,
+            "identity_launches": lcs.IDENTITY_LAUNCHES}
 
 
 def main() -> int:
@@ -1289,11 +1428,12 @@ def main() -> int:
     build_s = phase_build((merge_path, lcs))
     lap("build")
     lcs_timing = phase_lcs(lcs, dev)
+    id_timing = phase_identity(lcs, dev)
     timing = phase_kernel(merge_path, dev)
     lap("kernel")
     card = smi.splitlines()[0]
     with tempfile.TemporaryDirectory() as tmp:
-        parity_lcs = phase_cpu_gpu(cli, lcs, pg_stage, perf_e2e, tmp)
+        parity = phase_cpu_gpu(cli, lcs, pg_stage, perf_e2e, tmp)
         lap("cpu_gpu")
     with tempfile.TemporaryDirectory() as tmp:
         cfg = perf_e2e.synth(tmp, n_tx=CONTIG_TX, n_pairs=CONTIG_PAIRS,
@@ -1301,7 +1441,7 @@ def main() -> int:
         lap("simulate")
         slice_launches = phase_slice(cli, merge_path, lcs, cfg, tmp)
         lap("pregraph")
-        (launches, lcs_launches, lcs_wave), numbers, res, out = phase_all(
+        (launches, id_wave), numbers, res, out = phase_all(
             cli, merge_path, lcs, card, tmp, cfg)
         lap("all")
         flag_launches, flag_numbers, map_out = phase_flags(
@@ -1327,33 +1467,54 @@ def main() -> int:
     log("[flags] " + json.dumps(flag_numbers))
     log("[mesh] " + json.dumps(mesh_numbers))
     log("[e2e] " + json.dumps(e2e_numbers))
-    by_path = {"pregraph_500k": slice_launches,
-               "all_500k": (launches, lcs_launches),
+    by_path = {"pregraph_500k": slice_launches, "all_500k": launches,
                "options_500k_220k": flag_launches,
                "mesh_4_shards_500k": mesh_launches}
+    lcs_wave = lcs_timing["synthetic"]["wave_1024x384"]
     log(json.dumps({"kernels": [{
         "name": "merge_path", "route": "cuda",
         "source": "soapdenovo_trans_tpu_torch/csrc/merge_path.cu",
         "replaces": "soapdenovo_trans_tpu/kernels/merge_path.py:284",
-        "launches": launches,
+        "launches": launches[0],
         "launches_by_path": {path: n[0] for path, n in by_path.items()},
         "build_s": build_s["merge_path.cu"], **timing}, {
+        "name": "identity", "route": "cuda",
+        "source": "soapdenovo_trans_tpu_torch/csrc/lcs.cu",
+        "entry": "identity_launch",
+        "replaces": "soapdenovo_trans_tpu/graph/tourbus.py:116",
+        "replaces_what": "the identity-check block of the jitted _wave: "
+                         "_path_seq (:116-133) for each path, the length "
+                         "gate (:221-225), _lcs_scores (:77-96) and the "
+                         "verdict (:230); XLA device code, not a Pallas "
+                         "kernel",
+        "launches": launches[2],
+        "launches_by_path": {
+            "cpu_gpu_parity": parity[1],
+            **{path: n[2] for path, n in by_path.items()},
+            "e2e_fixtures": e2e_numbers["identity_launches"]},
+        "max_abs_err": max(id_timing["max_abs_err"], id_wave["max_abs_err"]),
+        "ms": id_wave["ms"], "plain_ms": id_wave["plain_ms"],
+        "bound_ms": id_wave["bound_ms"], "bound_by": id_wave["bound_by"],
+        "library_ms": None, "host_us": id_wave["host_us"],
+        "build_s": build_s["lcs.cu"], "wave_inputs": id_wave,
+        "synthetic": id_timing["synthetic"]}, {
         "name": "lcs", "route": "cuda",
         "source": "soapdenovo_trans_tpu_torch/csrc/lcs.cu",
+        "entry": "lcs_launch",
         "replaces": "soapdenovo_trans_tpu/graph/tourbus.py:77",
         "replaces_what": "_lcs_scores, the lax.scan at :95 inside the "
                          "jitted _wave; a device loop, not a Pallas kernel",
-        "launches": lcs_launches,
+        "on_main_path": False,
+        "launches": launches[1],
         "launches_by_path": {
-            "cpu_gpu_parity": parity_lcs,
+            "cpu_gpu_parity": parity[0],
             **{path: n[1] for path, n in by_path.items()},
             "e2e_fixtures": e2e_numbers["lcs_launches"]},
-        "max_abs_err": max(lcs_timing["max_abs_err"],
-                           lcs_wave["max_abs_err"]),
+        "max_abs_err": lcs_timing["max_abs_err"],
         "ms": lcs_wave["ms"], "plain_ms": lcs_wave["plain_ms"],
         "bound_ms": lcs_wave["bound_ms"], "bound_by": lcs_wave["bound_by"],
         "library_ms": None, "build_s": build_s["lcs.cu"],
-        "wave_inputs": lcs_wave, "synthetic": lcs_timing["synthetic"]}]}))
+        "synthetic": lcs_timing["synthetic"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

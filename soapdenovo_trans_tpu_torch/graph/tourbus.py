@@ -16,8 +16,8 @@ One wave, over flat arrays:
 2. every non-forest arc (u -> t) is a bubble candidate: walking
    <= MAXNODELENGTH steps up the forest from t and from u and
    intersecting the two chains gives the fork s and the two paths;
-3. path sequences are gathered into fixed buffers and scored by LCS:
-   accept iff LCS >= 90% of the longer and |lenA - lenB| <= DIFF;
+3. the two paths' sequences are scored by LCS: accept iff LCS >= 90%
+   of the longer and |lenA - lenB| <= DIFF (``lcs.identity_check``);
 4. accepted candidates claim their edges (scatter-min arbitration);
    claim-disjoint winners apply together: minority edges (and twins)
    deleted, their coverage added onto the covering majority edges,
@@ -58,7 +58,8 @@ def _lcs_scores(a, b, la, lb, cap: int):
     """LCS length between a[:la] and b[:lb] per batch row — the
     identity measure for compareSequences' F-matrix check
     (bubble.c:425-497): matches / max(len) >= 0.9 accepts.  One launch
-    of the LCS kernel on the card (``kernels/lcs.py``)."""
+    of the LCS kernel on the card (``kernels/lcs.py``).  The wave does
+    not call it: ``lcs.identity_check`` is its whole identity check."""
     return lcs.lcs_scores(a, b, la, lb, cap)
 
 
@@ -82,25 +83,6 @@ def _path_nodes(chain, s_idx, m_max: int, skip_last: int):
 
 def _gather2(x, nodes, fill):
     return _gather_or(x, nodes.reshape(-1), fill).reshape(nodes.shape)
-
-
-def _path_seq(nodes, eg, seq_cap: int):
-    """Concatenate the appended-base sequences of a node list into a
-    fixed (C, seq_cap) buffer; returns (seq, total_len)."""
-    lens = _gather2(eg.length, nodes, 0)                   # (C, m)
-    cum = torch.cumsum(lens, 1) - lens                      # exclusive starts
-    total = lens.sum(1)
-    p = torch.arange(seq_cap, device=nodes.device)[None, :, None]
-    inside = (p >= cum[:, None, :]) & (p < (cum + lens)[:, None, :])
-    seg = inside.to(torch.uint8).argmax(2)                  # (C, S)
-    hit = inside.any(2)
-    node_p = torch.gather(nodes, 1, seg)
-    off = _gather2(eg.seq_off, node_p, 0)
-    start = torch.gather(cum, 1, seg)
-    pool_idx = off + (torch.arange(seq_cap, device=nodes.device)[None, :]
-                      - start)
-    base = eg.seq_pool[pool_idx.clamp(0, eg.seq_pool.shape[0] - 1)]
-    return torch.where(hit, base, 250), total
 
 
 def _walk(prev, start, steps: int):
@@ -194,14 +176,11 @@ def _wave(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet, failed,
     clash |= ((mnr == tw_mnr) & (mnr >= 0)).any(1)
     found &= ~clash & (mnr >= 0).any(1) & (maj >= 0).any(1)
 
-    seq_a, len_a = _path_seq(maj, eg, seq_cap)
-    seq_b, len_b = _path_seq(mnr, eg, seq_cap)
-    compared = found & ((len_a - len_b).abs() <= diff) & \
-        (len_a <= seq_cap) & (len_b <= seq_cap)
+    # path lengths, the length gate, the LCS of the two path sequences
+    # and the 90% verdict: one launch of the identity kernel on the card
+    len_a, len_b, compared, ok, _ = lcs.identity_check(
+        maj, mnr, found, eg.length, eg.seq_off, eg.seq_pool, diff, seq_cap)
     n_compared = compared.sum()
-    lcs = _lcs_scores(seq_a, seq_b, torch.where(compared, len_a, 0),
-                      torch.where(compared, len_b, 0), seq_cap)
-    ok = compared & (lcs * 10 >= 9 * torch.maximum(len_a, len_b))
 
     # 5. claim arbitration: winners are edge-disjoint within the wave;
     # the lowest (minority coverage, candidate index) claim wins

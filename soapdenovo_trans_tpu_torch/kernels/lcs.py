@@ -1,15 +1,20 @@
-"""LCS lengths of a batch of byte-string pairs: the Hopper kernel of the
-Tour-Bus identity check.
+"""The Hopper kernels of the Tour-Bus identity check: the LCS lengths
+of a batch of byte-string pairs, and the wave's whole identity check.
 
-Replaces the JAX package's ``graph/tourbus.py:77-96`` ``_lcs_scores``,
-a 384-step ``lax.scan`` inside the jitted Tour-Bus wave (an XLA device
-loop, not a Pallas kernel).  The CUDA source is ``csrc/lcs.cu`` in this
-package (a bit-parallel LCS, one warp a pair); it is compiled for
-``sm_90a`` with ``nvcc`` at first use into ``_build/`` and loaded with
-``ctypes`` (``kernels/_nvcc.py``).
+``lcs_scores`` replaces the JAX package's ``graph/tourbus.py:77-96``
+``_lcs_scores``, a 384-step ``lax.scan`` inside the jitted Tour-Bus
+wave (an XLA device loop, not a Pallas kernel).  ``identity_check``
+replaces the identity-check block of that wave: ``_path_seq`` for each
+path (:116-133), the length gate (:221-225), ``_lcs_scores`` and the
+verdict (:230); the wave calls it once.  The CUDA source of both is
+``csrc/lcs.cu`` in this package (``lcs_launch``: a bit-parallel LCS, one
+warp a pair; ``identity_launch``: one thread a row, the bases read from
+the edge pool); it is compiled for ``sm_90a`` with ``nvcc`` at first use
+into ``_build/`` and loaded with ``ctypes`` (``kernels/_nvcc.py``).
 
-``lcs_scores`` launches the kernel for CUDA tensors and runs the plain
-PyTorch version (``lcs_scores_plain``) only for CPU tensors.
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+PyTorch version (``lcs_scores_plain``, ``identity_check_plain``) only
+for CPU tensors.
 """
 
 from __future__ import annotations
@@ -22,9 +27,11 @@ import torch
 from . import _nvcc
 
 SOURCE = os.path.join(_nvcc.CSRC, "lcs.cu")
-MAX_CAP = 512  # the kernel keeps at most 8 64-bit words of V a pair
+MAX_CAP = 512  # the kernels keep at most 512 bits of V a pair
+MAX_SLOTS = 64  # node slots a path in identity_check (its shared memory)
 
-LAUNCHES = 0  # kernel launches since the last reset (plain runs not counted)
+LAUNCHES = 0  # lcs_launch launches since the last reset (plain runs not counted)
+IDENTITY_LAUNCHES = 0  # identity_launch launches since the last reset
 _LIB = None
 
 
@@ -42,6 +49,10 @@ def _load():
         lib.lcs_launch.argtypes = ([ctypes.c_void_p] * 5
                                    + [ctypes.c_longlong] * 2
                                    + [ctypes.c_void_p])
+        lib.identity_launch.restype = ctypes.c_int
+        lib.identity_launch.argtypes = ([ctypes.c_void_p] * 11
+                                        + [ctypes.c_longlong] * 6
+                                        + [ctypes.c_void_p])
         lib.lcs_max_cap.restype = ctypes.c_longlong
         lib.lcs_max_cap.argtypes = []
         if lib.lcs_max_cap() != MAX_CAP:
@@ -116,3 +127,123 @@ def lcs_scores_plain(a, b, la, lb, cap: int):
         upper = torch.maximum(cand, row[:, 1:])
         row = torch.cat([row[:, :1], torch.cummax(upper, 1).values], 1)
     return row[:, -1]
+
+
+def _gather_or(x, idx, fill):
+    ok = (idx >= 0) & (idx < x.shape[0])
+    return torch.where(ok, x[idx.clamp(0, x.shape[0] - 1)], fill)
+
+
+def _gather2(x, nodes, fill):
+    return _gather_or(x, nodes.reshape(-1), fill).reshape(nodes.shape)
+
+
+def _path_seq(nodes, length, seq_off, seq_pool, seq_cap: int):
+    """Concatenate the appended-base sequences of a node list into a
+    fixed (C, seq_cap) buffer; returns (seq, total_len)."""
+    lens = _gather2(length, nodes, 0)                      # (C, m)
+    cum = torch.cumsum(lens, 1) - lens                      # exclusive starts
+    total = lens.sum(1)
+    p = torch.arange(seq_cap, device=nodes.device)[None, :, None]
+    inside = (p >= cum[:, None, :]) & (p < (cum + lens)[:, None, :])
+    seg = inside.to(torch.uint8).argmax(2)                  # (C, S)
+    hit = inside.any(2)
+    node_p = torch.gather(nodes, 1, seg)
+    off = _gather2(seq_off, node_p, 0)
+    start = torch.gather(cum, 1, seg)
+    pool_idx = off + (torch.arange(seq_cap, device=nodes.device)[None, :]
+                      - start)
+    base = seq_pool[pool_idx.clamp(0, seq_pool.shape[0] - 1)]
+    return torch.where(hit, base, 250), total
+
+
+def _check_identity(maj, mnr, found, length, seq_off, seq_pool,
+                    seq_cap: int) -> None:
+    xs = (maj, mnr, found, length, seq_off, seq_pool)
+    if len({x.device for x in xs}) != 1:
+        raise ValueError("identity inputs must lie on one device")
+    if not all(x.dtype == torch.int64 for x in (maj, mnr, length, seq_off)):
+        raise TypeError("maj, mnr, length and seq_off must be int64")
+    if found.dtype != torch.bool:
+        raise TypeError("found must be bool")
+    if seq_pool.dtype != torch.uint8:
+        raise TypeError("seq_pool must be uint8")
+    if not 0 <= seq_cap <= MAX_CAP:
+        raise ValueError(f"seq_cap {seq_cap} outside the kernel's "
+                         f"0..{MAX_CAP}")
+    if maj.dim() == 2 and maj.shape[1] > MAX_SLOTS:
+        raise ValueError(f"{maj.shape[1]} node slots a path, the kernel "
+                         f"takes at most {MAX_SLOTS}")
+    c = maj.shape[0] if maj.dim() == 2 else -1
+    e = length.shape[0] if length.dim() == 1 else -1
+    if mnr.shape != maj.shape or found.shape != (c,) or e < 1 or \
+            seq_off.shape != (e,) or seq_pool.dim() != 1 or \
+            seq_pool.shape[0] < 1:
+        raise ValueError(f"maj and mnr must be (C, m), found (C,), length "
+                         f"and seq_off (E,) and seq_pool (S,), E, S >= 1; "
+                         f"got {[tuple(x.shape) for x in xs]}")
+    if not all(x.is_contiguous() for x in xs):
+        raise ValueError("identity inputs must be contiguous")
+
+
+def identity_check(maj, mnr, found, length, seq_off, seq_pool, diff: int,
+                   seq_cap: int):
+    """The Tour-Bus wave's identity check of C candidate rows: returns
+    (len_a, len_b, compared, ok, lcs), each (C,), int64, int64, bool,
+    bool, int64.
+
+    maj, mnr: (C, m) int64 node lists in path order, -1 padded; found:
+    (C,) bool; length, seq_off: (E,) int64 and seq_pool: (S,) uint8, an
+    ``EdgeGraph``'s.  len_a sums length[n] over the nodes n >= 0 of maj
+    (len_b over mnr); compared = found & |len_a - len_b| <= diff &
+    len_a <= seq_cap & len_b <= seq_cap; lcs is the LCS of the two path
+    sequences (each node's seq_pool[seq_off[n]:seq_off[n] + length[n]],
+    in column order, the pool index clamped into the pool) where
+    compared, else 0; ok = compared & lcs·10 >= 9·max(len_a, len_b).
+    seq_cap <= MAX_CAP.
+
+    The kernel computes the true LCS; the plain version pads as the JAX
+    package does, so the two agree where the pool holds no byte 254 or
+    255 (an EdgeGraph's holds bases 0-3)."""
+    global IDENTITY_LAUNCHES
+    _check_identity(maj, mnr, found, length, seq_off, seq_pool, seq_cap)
+    dev = maj.device
+    if dev.type == "cpu":
+        return identity_check_plain(maj, mnr, found, length, seq_off,
+                                    seq_pool, diff, seq_cap)
+    if dev.type != "cuda":
+        raise ValueError(f"no identity kernel for device {dev}")
+    lib = _load()
+    c, m = maj.shape
+    with torch.cuda.device(dev):
+        longs = torch.empty((3, c), dtype=torch.int64, device=dev)
+        flags = torch.empty((2, c), dtype=torch.bool, device=dev)
+        if c:
+            err = lib.identity_launch(
+                maj.data_ptr(), mnr.data_ptr(), found.data_ptr(),
+                length.data_ptr(), seq_off.data_ptr(), seq_pool.data_ptr(),
+                longs[0].data_ptr(), longs[1].data_ptr(),
+                flags[0].data_ptr(), flags[1].data_ptr(),
+                longs[2].data_ptr(), c, m, length.shape[0],
+                seq_pool.shape[0], diff, seq_cap,
+                torch.cuda.current_stream(dev).cuda_stream)
+            if err:
+                raise RuntimeError(f"identity kernel launch failed: CUDA "
+                                   f"error {err}")
+            IDENTITY_LAUNCHES += 1
+    return longs[0], longs[1], flags[0], flags[1], longs[2]
+
+
+def identity_check_plain(maj, mnr, found, length, seq_off, seq_pool,
+                         diff: int, seq_cap: int):
+    """``identity_check`` in plain PyTorch: both paths' sequences into
+    (C, seq_cap) buffers, the gate, the LCS loop and the verdict, as the
+    JAX wave computes them."""
+    seq_a, len_a = _path_seq(maj, length, seq_off, seq_pool, seq_cap)
+    seq_b, len_b = _path_seq(mnr, length, seq_off, seq_pool, seq_cap)
+    compared = found & ((len_a - len_b).abs() <= diff) & \
+        (len_a <= seq_cap) & (len_b <= seq_cap)
+    lcs = lcs_scores_plain(seq_a, seq_b, torch.where(compared, len_a, 0),
+                           torch.where(compared, len_b, 0), seq_cap)
+    ok = compared & (lcs * 10 >= 9 * torch.maximum(len_a, len_b))
+    return len_a, len_b, compared, ok, lcs

@@ -10,13 +10,16 @@ default 100,000 pairs), K = 23: ``pregraph`` through ``cli.main``, then
 builds, the allocator warms; its seconds are the stage's without the
 profiler), the second under the profiler.  Prints the stage's seconds,
 the Tour-Bus waves and seconds a wave, the device-busy share of the
-profiled stage (the sum of kernel time over wall time), the LCS kernel's
-device time a launch, and the twelve kernels with the most device time.
-Then the LCS kernel alone at a wave's full 1,024 x 384 with la = lb =
-384 (20 launches under the profiler): its device time a launch, which
-CUDA events around one call cannot separate from the wrapper's host
-time.  The last line is a JSON object of the same.  Imports nothing of
-JAX.
+profiled stage (the sum of kernel time over wall time), the launches a
+wave, the identity kernel's device time a launch (the wave's one call of
+``kernels.lcs.identity_check``) and the twelve kernels with the most
+device time.  Then the kernels of ``csrc/lcs.cu`` alone, 20 launches
+each under the profiler: the identity kernel at a real wave's shape (12
+of 1,024 rows compared, paths of 24 bases) and at 1,024 x 384 with full
+paths, and the standalone LCS kernel at 1,024 x 384 with la = lb = 384;
+their device time a launch, which CUDA events around one call cannot
+separate from the wrapper's host time.  The last line is a JSON object
+of the same.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ import perf_e2e  # noqa: E402
 import profsum  # noqa: E402
 from soapdenovo_trans_tpu_torch import cli  # noqa: E402
 from soapdenovo_trans_tpu_torch.kernels import lcs  # noqa: E402
+from tests.test_torch_lcs_gpu import (identity_case,  # noqa: E402
+                                      identity_to_device)
 
 
 def timed_contig(prefix: str):
@@ -58,13 +63,29 @@ def lcs_alone_us(reps: int = 20) -> float:
     b = torch.where(torch.rand(a.shape, generator=gen, device="cuda")
                     < 0.12, noise, a)
     la = torch.full((1024,), 384, dtype=torch.int64, device="cuda")
-    lcs.lcs_scores(a, b, la, la, 384)
+    return device_us(lambda: lcs.lcs_scores(a, b, la, la, 384),
+                     "lcs_kernel", reps)
+
+
+def identity_alone_us(name: str, reps: int = 20) -> float:
+    """Device microseconds a launch of the identity kernel on 1,024 rows
+    of the ``name`` case of tests/test_torch_lcs_gpu.py (m = 3, seq_cap =
+    384, diff = 2)."""
+    xs = identity_to_device(identity_case(name, 1024, 3, 384, 2, 7), "cuda")
+    return device_us(lambda: lcs.identity_check(*xs, 2, 384),
+                     "identity_kernel", reps)
+
+
+def device_us(fn, kernel: str, reps: int) -> float:
+    """Device microseconds a launch of ``kernel`` over ``reps`` calls of
+    fn() under the profiler, after one warm-up call."""
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            lcs.lcs_scores(a, b, la, la, 384)
+            fn()
         torch.cuda.synchronize()
-    seconds, launches = profsum.kernel_time(prof, "lcs_kernel")
+    seconds, launches = profsum.kernel_time(prof, kernel)
     return 1e6 * seconds / max(launches, 1)
 
 
@@ -80,16 +101,16 @@ def main() -> int:
         prefix = os.path.join(tmp, "asm")
         cli.main(["pregraph", "-s", cfg, "-K", "23", "-o", prefix])
         plain_res, plain_s = timed_contig(prefix)
-        lcs.LAUNCHES = 0
+        lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             res, wall = timed_contig(prefix)
     waves = res.tourbus["waves"]
-    if lcs.LAUNCHES != waves or plain_res.tourbus["waves"] != waves:
-        raise AssertionError(f"{lcs.LAUNCHES} LCS launches over {waves} "
-                             f"waves")
+    if lcs.IDENTITY_LAUNCHES != waves or plain_res.tourbus["waves"] != waves:
+        raise AssertionError(f"{lcs.IDENTITY_LAUNCHES} identity launches "
+                             f"over {waves} waves")
     summary = profsum.device_summary(prof, wall)
-    lcs_s, lcs_n = profsum.kernel_time(prof, "lcs_kernel")
+    id_s, id_n = profsum.kernel_time(prof, "identity_kernel")
     numbers = {
         "card": card, "pairs": pairs, "what": "contig -g on one card",
         "stage_s": plain_s, "profiled_stage_s": wall,
@@ -97,9 +118,12 @@ def main() -> int:
         "productive_waves": res.tourbus["productive"],
         "s_per_wave": plain_s / max(waves, 1),
         "launches_per_wave": summary["kernel_launches"] / max(waves, 1),
-        "lcs_kernel": {"seconds": lcs_s, "launches": lcs_n,
-                       "us_per_launch": 1e6 * lcs_s / max(lcs_n, 1)},
+        "identity_kernel": {"seconds": id_s, "launches": id_n,
+                            "us_per_launch": 1e6 * id_s / max(id_n, 1)},
+        "lcs_kernel_launches": lcs.LAUNCHES,
         **summary,
+        "identity_alone_wave_1024x384_us": identity_alone_us("wave"),
+        "identity_alone_1024x384_full_us": identity_alone_us("full"),
         "lcs_alone_1024x384_full_us": lcs_alone_us()}
     profsum.print_top("prof_contig", summary)
     print(json.dumps(numbers))
