@@ -49,9 +49,11 @@ Phases, each of which raises on failure:
    names its own path; ``.gz`` files decompressed); and ``all`` on a
    mesh of two logical shards of each device (``cpu,cpu`` and
    ``cuda:0,cuda:0``) must write the files of the one-device ``all``;
-   the cuda runs must launch the identity kernel once a Tour-Bus wave of
-   their contig stages (the standalone LCS kernel's launches, now 0,
-   are printed);
+   the cuda runs must execute the identity kernel once a Tour-Bus wave
+   of their contig stages, and run each pinch as a wave program
+   (``graph/tourbus.WaveProgram``): one CUDA graph captured a pinch of
+   two waves or more, every wave after the first a replay (the
+   standalone LCS kernel's launches, now 0, are printed);
 5. pregraph at real size: ``pregraph -K 23`` on 500,000 simulated
    read pairs (2x100 bp, insert 300, 5,000 transcripts of 1,500 bp,
    half with SNP isoforms, 0.2% errors, seed 0; 1,000,000 pairs until
@@ -62,18 +64,20 @@ Phases, each of which raises on failure:
 6. the main path: ``all -K 23`` through ``cli.main`` on the same
    500,000 pairs, with the launch
    counts reset just before (``all`` resets the peak-memory statistics
-   before each stage).  The identity kernel must launch once a Tour-Bus
-   wave (the standalone LCS kernel's launches, now 0, are printed); the
-   inputs of every 512th call are kept (16 calls: their node lists and
-   found flags, and the graph's tensors, which every wave shares; the
-   peak bytes of contig, map and scaff then include them, and the
-   script prints their bytes) and, after the run, held against the
-   plain version and timed (the kernel on the waves the main path
-   gives it).  Until the LCS kernel the contig
-   stage at 1,000,000 pairs took about 950 s on an H100 (31,426 waves
-   of 30 ms), more than this script's time allows.  Checks: the
-   .contig headers and sequence
-   lengths agree with .ContigIndex; .updated.edge declares as many
+   before each stage).  The identity kernel must execute once a
+   Tour-Bus wave, the pinch be captured once and every later wave be a
+   replay (the standalone LCS kernel's launches, now 0, are printed;
+   so are the captures, the replays and the host microseconds of a
+   replay, ``WaveRecorder``); the identity inputs of every 512th wave
+   are kept (16 waves: copies of their node lists and found flags, and
+   the graph's tensors, which every wave shares; the peak bytes of
+   contig, map and scaff then include them, and the script prints
+   their bytes) and, after the run, held against the plain version and
+   timed (the kernel on the waves the main path gives it).  Until the
+   LCS kernel the contig stage at 1,000,000 pairs took about 950 s on an
+   H100 (31,426 waves of 30 ms), more than this script's time allows.
+   Checks: the .contig headers and sequence lengths agree with
+   .ContigIndex; .updated.edge declares as many
    edges as there are ids; the sequences are ACGT only; every K-window
    of every contig made of one pregraph edge is a k-mer of the pregraph
    table (looked up on the card); the read ids of .readOnContig and
@@ -95,10 +99,12 @@ Phases, each of which raises on failure:
    ``pregraph -R`` and ``contig -R -g`` on 220,000 pairs (2,200
    transcripts, seed 0: two counting build units, so one launch of the
    merge kernel; at 300,000 pairs Tour-Bus after splitting runs 4,792
-   waves, 123-159 s, too long beside phase 6): .path holds as many records as the recorder
-   counted, .markOnEdge one line per edge, the repeat edges split
-   are reported, and the identity kernel launched once a Tour-Bus wave
-   of ``contig -R``.  Seconds of every part and peak bytes are printed;
+   waves, 123-159 s, too long beside phase 6): .path holds as many
+   records as the recorder counted, .markOnEdge one line per edge, the
+   repeat edges split are reported, and the identity kernel executed
+   once a Tour-Bus wave of ``contig -R``, its pinch captured once and
+   replayed (captures, replays and host microseconds a replay printed).
+   Seconds of every part and peak bytes are printed;
 8. the mesh path at full width, on four logical shards of the one
    card (``SOAPDENOVO_TORCH_DEVICE=cuda:0,cuda:0,cuda:0,cuda:0``; no
    multi-card measurement), with the launch counts reset just before:
@@ -120,7 +126,8 @@ Phases, each of which raises on failure:
    byte for byte (``.gz`` files decompressed, the prefix replaced), and
    the pregraph edges must decode to the same sequences.  Each fixture
    is one counting build unit, so the merge kernel is not launched here;
-   the identity kernel launches once a wave of their contig stages.
+   the identity kernel executes once a wave of their contig stages,
+   and a pinch of two waves or more is captured once and replayed.
 
 The lines before the last two are JSON objects of phase 9's, phase 8's,
 phase 7's and the main path's numbers, last to first; the
@@ -412,29 +419,75 @@ def phase_identity(lcs, dev) -> dict:
     return {"max_abs_err": err, "synthetic": times}
 
 
-class IdentityRecorder:
-    """Wraps ``kernels.lcs.identity_check`` while the main path runs and
-    keeps the inputs of every ``every``-th call (references only: no
-    copy, no host read; the graph tensors are the wave's own, the same
-    for every wave between repeat splits).  They stay allocated until
-    the run ends, so keep few: the stages' peak bytes hold them."""
+class WaveRecorder:
+    """Wraps the Tour-Bus wave program (``graph/tourbus.WaveProgram``)
+    while a path runs: counts the waves it launches, times the host's
+    part of each launch (the device not waited for: the eager first
+    wave's launches, the capture, a graph replay), and keeps the
+    identity-check inputs of every ``every``-th wave (0: none).  A
+    wave's identity inputs are the tensors of the last
+    ``kernels.lcs.identity_check`` call, the eager wave's or the one
+    captured into the graph, which each replay refills: a kept wave's
+    node lists and found flags are copied right after its launch (in
+    stream order), the graph tensors, which every wave of a pinch
+    shares, kept by reference.  They stay allocated until the run ends:
+    the stages' peak bytes hold them."""
 
-    def __init__(self, lcs, every: int = 512):
-        self.lcs, self.every, self.calls, self.kept = lcs, every, 0, []
-        self.real = lcs.identity_check
+    def __init__(self, lcs, tourbus, every: int = 0):
+        self.lcs, self.tourbus, self.every = lcs, tourbus, every
+        self.waves, self.kept, self.last = 0, [], None
+        self.host_s = {"eager": [], "capture": [], "replay": []}
+        self.real_identity = lcs.identity_check
+        self.real_launch = tourbus.WaveProgram.launch
 
     def __enter__(self):
-        def recorded(*inputs):
-            if self.calls % self.every == 0:
-                self.kept.append(inputs)
-            self.calls += 1
-            return self.real(*inputs)
+        def identity(*inputs):
+            self.last = inputs
+            return self.real_identity(*inputs)
 
-        self.lcs.identity_check = recorded
+        def launch(prog):
+            kind = ("eager", "capture", "replay")[min(prog.waves, 2)]
+            t0 = time.perf_counter()
+            counts = self.real_launch(prog)
+            self.host_s[kind].append(time.perf_counter() - t0)
+            if self.every and self.waves % self.every == 0:
+                maj, mnr, found, *rest = self.last
+                self.kept.append((maj.clone(), mnr.clone(), found.clone(),
+                                  *rest))
+            self.waves += 1
+            return counts
+
+        self.lcs.identity_check = identity
+        self.tourbus.WaveProgram.launch = launch
         return self
 
     def __exit__(self, *exc):
-        self.lcs.identity_check = self.real
+        self.lcs.identity_check = self.real_identity
+        self.tourbus.WaveProgram.launch = self.real_launch
+
+    def numbers(self) -> dict:
+        """Waves, captures and replays, and the host microseconds of a
+        launch of each kind (median; the capture's total)."""
+        us = {kind: 1e6 * statistics.median(t) if t else None
+              for kind, t in self.host_s.items()}
+        return {"waves": self.waves, "captures": self.tourbus.CAPTURES,
+                "replays": self.tourbus.REPLAYS,
+                "host_us_replay": us["replay"], "host_us_eager": us["eager"],
+                "host_us_capture": us["capture"]}
+
+
+def check_wave_programs(tourbus, lcs, waves, what: str) -> None:
+    """The card's pinches ran as wave programs: one capture a pinch of two
+    waves or more, every later wave a replay, one identity kernel
+    execution a wave.  ``waves``: the Tour-Bus waves of each pinch on the
+    card."""
+    want = (sum(w >= 2 for w in waves), sum(max(w - 1, 0) for w in waves),
+            sum(waves))
+    got = (tourbus.CAPTURES, tourbus.REPLAYS, lcs.IDENTITY_LAUNCHES)
+    if got != want:
+        raise AssertionError(f"{what}: captures, replays, identity "
+                             f"executions {got}, not {want} for pinches of "
+                             f"{list(waves)} waves")
 
 
 def identity_on_wave_inputs(lcs, kept) -> dict:
@@ -684,17 +737,17 @@ def copy_prefix(src: str, dst: str, exts=None) -> None:
             shutil.copy(os.path.join(folder, f), dst + f[len(name):])
 
 
-def phase_cpu_gpu(cli, lcs, pg_stage, perf_e2e, tmp: str) -> tuple:
+def phase_cpu_gpu(cli, lcs, tourbus, pg_stage, perf_e2e, tmp: str) -> tuple:
     cfg = perf_e2e.synth(tmp, n_tx=40, n_pairs=3000, seed=1)
     default_rows = pg_stage.TARGET_BUILD_ROWS
     lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
-    waves = 0
+    tourbus.CAPTURES = tourbus.REPLAYS = 0
+    pinches = []
 
-    def stage(argv, device):  # counts the card's Tour-Bus waves
-        nonlocal waves
+    def stage(argv, device):  # the card's Tour-Bus waves, a pinch each
         res = run_stage(cli, argv, device)
         if device.startswith("cuda"):
-            waves += tourbus_waves(res)
+            pinches.append(tourbus_waves(res))
         return res
 
     pg_stage.TARGET_BUILD_ROWS = 1  # 4096-read units: several merges
@@ -751,13 +804,17 @@ def phase_cpu_gpu(cli, lcs, pg_stage, perf_e2e, tmp: str) -> tuple:
                 f"one-device files")
     finally:
         pg_stage.TARGET_BUILD_ROWS = default_rows
+    waves = sum(pinches)
     if waves < 1 or lcs.IDENTITY_LAUNCHES != waves:
         raise AssertionError(f"the cuda runs launched the identity kernel "
                              f"{lcs.IDENTITY_LAUNCHES} times over {waves} "
                              f"Tour-Bus waves")
+    check_wave_programs(tourbus, lcs, pinches, "the cuda runs")
     log(f"[parity] the cuda runs launched the identity kernel "
-        f"{lcs.IDENTITY_LAUNCHES} times, once a Tour-Bus wave; the "
-        f"standalone LCS kernel {lcs.LAUNCHES} times")
+        f"{lcs.IDENTITY_LAUNCHES} times, once a Tour-Bus wave; "
+        f"{tourbus.CAPTURES} wave captures and {tourbus.REPLAYS} replays "
+        f"over pinches of {pinches} waves; the standalone LCS kernel "
+        f"{lcs.LAUNCHES} times")
     return lcs.LAUNCHES, lcs.IDENTITY_LAUNCHES
 
 
@@ -967,7 +1024,7 @@ def check_scaffolds(out: str, contig_recs):
     return scaf
 
 
-def phase_all(cli, merge_path, lcs, smi: str, tmp: str, cfg: str):
+def phase_all(cli, merge_path, lcs, tourbus, smi: str, tmp: str, cfg: str):
     from soapdenovo_trans_tpu_torch.graph import contig_merge
     from soapdenovo_trans_tpu_torch.ops import dictionary, kmer
     from soapdenovo_trans_tpu_torch.stages import pelinks
@@ -975,8 +1032,9 @@ def phase_all(cli, merge_path, lcs, smi: str, tmp: str, cfg: str):
     out = os.path.join(tmp, "all")
     dev = torch.device("cuda")
     merge_path.LAUNCHES = lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
+    tourbus.CAPTURES = tourbus.REPLAYS = 0
     t0 = time.time()
-    with IdentityRecorder(lcs) as recorder:
+    with WaveRecorder(lcs, tourbus, every=512) as recorder:
         res = run_stage(cli, ["all", "-s", cfg, "-K", str(K), "-o", out],
                         "cuda")
     all_s = time.time() - t0
@@ -984,13 +1042,17 @@ def phase_all(cli, merge_path, lcs, smi: str, tmp: str, cfg: str):
     if launches[0] < 1:
         raise AssertionError("the main path never launched the merge "
                              "kernel")
-    if not launches[2] == recorder.calls == res.contig.tourbus["waves"]:
+    if not launches[2] == recorder.waves == res.contig.tourbus["waves"]:
         raise AssertionError(
-            f"the identity kernel launched {launches[2]} times in "
-            f"{recorder.calls} calls over {res.contig.tourbus['waves']} "
-            f"Tour-Bus waves, not once a wave")
-    log(f"[all] identity kernel launches {launches[2]} = Tour-Bus waves; "
-        f"standalone LCS kernel launches {launches[1]}")
+            f"the identity kernel executed {launches[2]} times in "
+            f"{recorder.waves} launched waves over "
+            f"{res.contig.tourbus['waves']} Tour-Bus waves, not once a wave")
+    check_wave_programs(tourbus, lcs, [res.contig.tourbus["waves"]],
+                        "all's contig stage")
+    program = recorder.numbers()
+    log(f"[all] identity kernel executions {launches[2]} = Tour-Bus waves; "
+        f"standalone LCS kernel launches {launches[1]}; the wave program: "
+        + json.dumps(program))
     id_wave = identity_on_wave_inputs(lcs, recorder.kept)
     del recorder
     log("[all] the identity kernel on the inputs of every 512th wave: "
@@ -1053,6 +1115,7 @@ def phase_all(cli, merge_path, lcs, smi: str, tmp: str, cfg: str):
         "contig_phase_s": result.phase_seconds, "laps": result.laps,
         "waves": tb["waves"], "productive_waves": tb["productive"],
         "merged": tb["merged"], "s_per_wave": tb["s_per_wave"],
+        "wave_program": program,
         "contigs": len(recs), "total_len": sum(lengths),
         "n50": n50(lengths), "table_window_share": hit_all / max(n_all, 1),
         "asymmetric_twins": asym,
@@ -1072,7 +1135,9 @@ def phase_all(cli, merge_path, lcs, smi: str, tmp: str, cfg: str):
     log(f"[all] {all_s:.1f}s: " + ", ".join(
         f"{s} {t:.1f}s" for s, t in res.stage_seconds.items()) +
         f"; peak GB {peaks}; {tb['waves']} Tour-Bus waves of "
-        f"{tb['s_per_wave'] * 1e3:.2f} ms on {smi}")
+        f"{tb['s_per_wave'] * 1e3:.2f} ms ({program['captures']} capture, "
+        f"{program['replays']} replays of {program['host_us_replay']:.1f} "
+        f"host us) on {smi}")
     return (launches, id_wave), numbers, res, out
 
 
@@ -1104,8 +1169,8 @@ def read_in_gap_records(path: str) -> int:
     return n
 
 
-def phase_flags(cli, merge_path, lcs, perf_e2e, smi: str, tmp: str, all_res,
-                cfg: str, all_out: str):
+def phase_flags(cli, merge_path, lcs, tourbus, perf_e2e, smi: str, tmp: str,
+                all_res, cfg: str, all_out: str):
     """Phase 7: the options at full width."""
     from soapdenovo_trans_tpu_torch.io import stagefiles
     from soapdenovo_trans_tpu_torch.ops import dictionary, kmer
@@ -1115,6 +1180,7 @@ def phase_flags(cli, merge_path, lcs, perf_e2e, smi: str, tmp: str, all_res,
     table = all_res.pregraph.table
     base_n = sum(s.count("N") for _, s in all_res.scaff.recs)
     merge_path.LAUNCHES = lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
+    tourbus.CAPTURES = tourbus.REPLAYS = 0
     t_phase = time.time()
 
     # gap reads, read tables and gap filling on phase 6's contigs
@@ -1194,18 +1260,22 @@ def phase_flags(cli, merge_path, lcs, perf_e2e, smi: str, tmp: str, all_res,
             f"{pres.edges.n_edges} edges")
     n_path_edges = sum(map(len, recs))
     del recs
-    cres, _table, _k = timed_stage(cli, ["contig", "-R", "-g", reps],
-                                   seconds, peaks, "contig -R")
+    with WaveRecorder(lcs, tourbus) as recorder:
+        cres, _table, _k = timed_stage(cli, ["contig", "-R", "-g", reps],
+                                       seconds, peaks, "contig -R")
     if cres.reps_split is None:
         raise AssertionError("contig -R did not read .path")
     check_contig_files(reps, cres.contigs.n)
     launches = (merge_path.LAUNCHES, lcs.LAUNCHES, lcs.IDENTITY_LAUNCHES)
     if launches[0] < 1:
         raise AssertionError("phase 7 never launched the merge kernel")
-    if launches[2] != cres.tourbus["waves"]:
+    if not launches[2] == recorder.waves == cres.tourbus["waves"]:
         raise AssertionError(
-            f"the identity kernel launched {launches[2]} times over "
-            f"{cres.tourbus['waves']} Tour-Bus waves of contig -R")
+            f"the identity kernel executed {launches[2]} times in "
+            f"{recorder.waves} launched waves over {cres.tourbus['waves']} "
+            f"Tour-Bus waves of contig -R")
+    check_wave_programs(tourbus, lcs, [cres.tourbus["waves"]], "contig -R")
+    program = recorder.numbers()
     numbers = {
         "card": smi, "pairs": CONTIG_PAIRS, "phase_s": time.time() - t_phase,
         "seconds": seconds, "peak_bytes": peaks,
@@ -1223,15 +1293,18 @@ def phase_flags(cli, merge_path, lcs, perf_e2e, smi: str, tmp: str, all_res,
                  "pregraph_phase_s": pres.phase_seconds,
                  "contig_phase_s": cres.phase_seconds,
                  "waves": cres.tourbus["waves"],
-                 "s_per_wave": cres.tourbus["s_per_wave"]},
+                 "s_per_wave": cres.tourbus["s_per_wave"],
+                 "wave_program": program},
         "merge_launches": launches[0], "lcs_launches": launches[1],
         "identity_launches": launches[2]}
     log(f"[flags] {numbers['phase_s']:.1f}s: " + ", ".join(
         f"{name} {sec:.1f}s" for name, sec in seconds.items()) +
         f"; {pres.path_reads} read paths, {cres.reps_split} repeat edges "
         f"split; contig -R {cres.tourbus['waves']} Tour-Bus waves of "
-        f"{cres.tourbus['s_per_wave'] * 1e3:.2f} ms on {smi}; identity "
-        f"kernel launches {launches[2]}, standalone LCS kernel "
+        f"{cres.tourbus['s_per_wave'] * 1e3:.2f} ms ({program['captures']} "
+        f"capture, {program['replays']} replays of "
+        f"{program['host_us_replay']:.1f} host us) on {smi}; identity "
+        f"kernel executions {launches[2]}, standalone LCS kernel "
         f"{launches[1]}")
     return launches, numbers, out
 
@@ -1343,7 +1416,7 @@ def load_test(name: str):
     return module
 
 
-def phase_e2e(cli, merge_path, lcs, smi: str, tmp: str):
+def phase_e2e(cli, merge_path, lcs, tourbus, smi: str, tmp: str):
     """Phase 9: the six fixtures of the JAX end-to-end suite (K = 21; the
     gap-fill one K = 23) through the CLI on the card: the suite's
     recovery checks, and every file equal to the port's CPU run's."""
@@ -1351,9 +1424,10 @@ def phase_e2e(cli, merge_path, lcs, smi: str, tmp: str):
 
     e2e = load_test("test_torch_e2e.py")
     merge_path.LAUNCHES = lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
+    tourbus.CAPTURES = tourbus.REPLAYS = 0
     t_phase = time.time()
     fixtures = {}
-    waves = 0
+    pinches = []
     for name in e2e.FIXTURES:
         folder = os.path.join(tmp, name)
         os.makedirs(folder)
@@ -1374,7 +1448,7 @@ def phase_e2e(cli, merge_path, lcs, smi: str, tmp: str):
             raise AssertionError(f"{name}: the edges decode differently on "
                                  f"cuda and cpu")
         res = results["cuda"][0]
-        waves += res.contig.tourbus["waves"]
+        pinches.append(res.contig.tourbus["waves"])
         fixtures[name] = {
             "k": fx.k, "seconds": sum(seconds["cuda"]),
             "stage_s": {**res.stage_seconds,
@@ -1388,12 +1462,16 @@ def phase_e2e(cli, merge_path, lcs, smi: str, tmp: str):
         log(f"[e2e] {name}: K={fx.k}, recovered on cuda in "
             f"{sum(seconds['cuda']):.2f}s; {n_files} files equal to the cpu "
             f"run's")
+    waves = sum(pinches)
     if lcs.IDENTITY_LAUNCHES != waves:
         raise AssertionError(f"the identity kernel launched "
                              f"{lcs.IDENTITY_LAUNCHES} times over {waves} "
                              f"Tour-Bus waves on cuda")
-    log(f"[e2e] identity kernel launches {lcs.IDENTITY_LAUNCHES} = Tour-Bus "
-        f"waves; standalone LCS kernel launches {lcs.LAUNCHES}")
+    check_wave_programs(tourbus, lcs, pinches, "the e2e fixtures on cuda")
+    log(f"[e2e] identity kernel executions {lcs.IDENTITY_LAUNCHES} = "
+        f"Tour-Bus waves ({pinches} a fixture; {tourbus.CAPTURES} captures, "
+        f"{tourbus.REPLAYS} replays); standalone LCS kernel launches "
+        f"{lcs.LAUNCHES}")
     return {"card": smi, "phase_s": time.time() - t_phase,
             "fixtures": fixtures, "merge_launches": merge_path.LAUNCHES,
             "lcs_launches": lcs.LAUNCHES,
@@ -1414,6 +1492,7 @@ def main() -> int:
 
     import perf_e2e
     from soapdenovo_trans_tpu_torch import cli
+    from soapdenovo_trans_tpu_torch.graph import tourbus
     from soapdenovo_trans_tpu_torch.kernels import lcs, merge_path
     from soapdenovo_trans_tpu_torch.stages import pregraph as pg_stage
 
@@ -1433,7 +1512,7 @@ def main() -> int:
     lap("kernel")
     card = smi.splitlines()[0]
     with tempfile.TemporaryDirectory() as tmp:
-        parity = phase_cpu_gpu(cli, lcs, pg_stage, perf_e2e, tmp)
+        parity = phase_cpu_gpu(cli, lcs, tourbus, pg_stage, perf_e2e, tmp)
         lap("cpu_gpu")
     with tempfile.TemporaryDirectory() as tmp:
         cfg = perf_e2e.synth(tmp, n_tx=CONTIG_TX, n_pairs=CONTIG_PAIRS,
@@ -1442,17 +1521,18 @@ def main() -> int:
         slice_launches = phase_slice(cli, merge_path, lcs, cfg, tmp)
         lap("pregraph")
         (launches, id_wave), numbers, res, out = phase_all(
-            cli, merge_path, lcs, card, tmp, cfg)
+            cli, merge_path, lcs, tourbus, card, tmp, cfg)
         lap("all")
         flag_launches, flag_numbers, map_out = phase_flags(
-            cli, merge_path, lcs, perf_e2e, card, tmp, res, cfg, out)
+            cli, merge_path, lcs, tourbus, perf_e2e, card, tmp, res, cfg,
+            out)
         lap("options")
         mesh_launches, mesh_numbers = phase_mesh(
             cli, merge_path, lcs, card, tmp, res, cfg, out, map_out)
         lap("mesh")
         del res
     with tempfile.TemporaryDirectory() as tmp:
-        e2e_numbers = phase_e2e(cli, merge_path, lcs, card, tmp)
+        e2e_numbers = phase_e2e(cli, merge_path, lcs, tourbus, card, tmp)
         lap("e2e")
     log("[script] seconds of each phase, simulation and checks included: "
         + json.dumps(script_s))

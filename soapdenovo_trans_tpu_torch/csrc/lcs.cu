@@ -486,14 +486,41 @@ __global__ void identity_kernel(
   }
 }
 
+// Dynamic shared memory of an identity_kernel block for m node slots a
+// path and cap bases (a lane's sequence rows: an odd count of 4-byte words
+// apart, so the lanes' bytes at one position lie in distinct banks, with
+// room for the padding: a to 4 bytes, b to 32).
+int identity_stride(long long cap) {
+  return 4 * (((((int)cap + 31) / 32 * 32) / 4 + 1) | 1);
+}
+
+size_t identity_smem(long long m, long long cap) {
+  return 4 * ROWS * m * sizeof(long long) + ROWS * 16 * sizeof(uint4) +
+         ROWS * PEQ_LANE * sizeof(u32) +
+         (size_t)ROWS * 2 * identity_stride(cap);
+}
+
 }  // namespace
+
+// Lets identity_kernel take, on the current device, the most dynamic
+// shared memory an identity_launch can ask for (m = 64, cap =
+// lcs_max_cap(): 117,504 B; more than 48 KB needs the attribute).  Call
+// it once a device before the first launch there, outside any stream
+// capture: the launch itself sets nothing, so it can be captured into a
+// CUDA graph.  Returns the CUDA error (0 on success).
+extern "C" int identity_reserve() {
+  return (int)cudaFuncSetAttribute(
+      identity_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)identity_smem(64, lcs_max_cap()));
+}
 
 // Enqueues the identity check of `rows` candidate rows on `stream`;
 // returns the CUDA error of the launch (0 on success).  maj and mnr are
 // (rows, m) int64 node lists, found (rows,) bool, length and seq_off (e,)
 // int64, pool (s,) uint8 with s >= 1; len_a, len_b and lcs are (rows,)
 // int64 outputs, compared and ok (rows,) bool; all contiguous on one
-// card, cap <= lcs_max_cap().
+// card, cap <= lcs_max_cap().  A block needing more than 48 KB of shared
+// memory (m = 30 at cap = 384) launches only after identity_reserve().
 extern "C" int identity_launch(const void* maj, const void* mnr,
                                const void* found, const void* length,
                                const void* seq_off, const void* pool,
@@ -504,22 +531,9 @@ extern "C" int identity_launch(const void* maj, const void* mnr,
   if (rows <= 0) return 0;
   if (cap < 0 || cap > lcs_max_cap() || m < 0 || m > 64 || e < 1 || s < 1)
     return (int)cudaErrorInvalidValue;
-  // a lane's sequence rows: an odd count of 4-byte words apart, so the
-  // lanes' bytes at one position lie in distinct banks, with room for
-  // the padding (a to 4 bytes, b to 32)
-  const int stride = 4 * (((((int)cap + 31) / 32 * 32) / 4 + 1) | 1);
-  const size_t smem = 4 * ROWS * m * sizeof(long long) +
-                      ROWS * 16 * sizeof(uint4) +
-                      ROWS * PEQ_LANE * sizeof(u32) +
-                      (size_t)ROWS * 2 * stride;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        identity_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  identity_kernel<<<(unsigned)((rows + ROWS - 1) / ROWS), ROWS, smem, st>>>(
+  identity_kernel<<<(unsigned)((rows + ROWS - 1) / ROWS), ROWS,
+                    identity_smem(m, cap), st>>>(
       static_cast<const long long*>(maj), static_cast<const long long*>(mnr),
       static_cast<const unsigned char*>(found),
       static_cast<const long long*>(length),
@@ -527,6 +541,7 @@ extern "C" int identity_launch(const void* maj, const void* mnr,
       static_cast<const unsigned char*>(pool),
       static_cast<long long*>(len_a), static_cast<long long*>(len_b),
       static_cast<unsigned char*>(compared), static_cast<unsigned char*>(ok),
-      static_cast<long long*>(lcs), rows, (int)m, e, s, diff, cap, stride);
+      static_cast<long long*>(lcs), rows, (int)m, e, s, diff, cap,
+      identity_stride(cap));
   return (int)cudaGetLastError();
 }

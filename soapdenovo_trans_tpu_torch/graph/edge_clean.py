@@ -53,10 +53,10 @@ def _segment_sum(vals, seg, n: int):
 
 
 def _scatter_true(n: int, idx):
-    """(n,) bool, True at idx; idx == n drops."""
-    out = torch.zeros(n + 1, dtype=torch.bool, device=idx.device)
-    out[idx] = True
-    return out[:n]
+    """(n,) bool, True at idx; idx == n drops.  No host value goes to
+    the device, so a CUDA graph can capture it."""
+    return torch.zeros(n + 1, dtype=torch.bool,
+                       device=idx.device).index_fill_(0, idx, True)[:n]
 
 
 def _empty_arcs(like) -> arcs_mod.ArcSet:

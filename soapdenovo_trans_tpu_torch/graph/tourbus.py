@@ -25,12 +25,19 @@ One wave, over flat arrays:
 
 Waves repeat to a fixpoint like the reference's HasChanged loop
 (:2123).  Inside a wave the host reads nothing; ``pinch`` reads the
-merge count and the candidate overflow once per wave.
+wave's four counts once per wave.  As the JAX package jits ``_wave`` and
+keeps the arc table at a rounded capacity so one compiled wave serves
+wave after wave, a pinch runs its waves as one program over buffers of
+fixed shapes (``WaveProgram``): on a card the first wave runs eagerly,
+the second is captured into a CUDA graph, and every later wave replays
+it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
+import warnings
 from typing import Tuple
 
 import torch
@@ -43,6 +50,9 @@ from .edge_clean import _gather_or, _scatter_true, rebuild_arcs
 SEQ_CAP = 384    # longest differing-path sequence considered per side
 CAND_CAP = 1024  # candidates arbitrated per wave (rest -> next wave)
 _BIG = 2**30
+
+CAPTURES = 0  # CUDA graphs captured since the last reset (one a pinch)
+REPLAYS = 0   # waves run as replays of a captured graph since the reset
 
 
 def _params_for(merge_level: int) -> Tuple[int, int]:
@@ -191,8 +201,8 @@ def _wave(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet, failed,
         ok, (_gather2(eg.cvg, mnr, 0) * (mnr >= 0)).sum(1), _BIG)
     q = claims.shape[1]
     flat_e = claims.reshape(-1)
-    flat_rank = rank.repeat_interleave(q)
-    flat_cid = torch.arange(c, device=dev).repeat_interleave(q)
+    flat_rank = rank[:, None].expand(c, q).reshape(-1)
+    flat_cid = torch.arange(c, device=dev)[:, None].expand(c, q).reshape(-1)
     big = torch.full((e_cap + 1,), _BIG, dtype=torch.int64, device=dev)
     win_rank = big.scatter_reduce(0, flat_e, flat_rank, "amin",
                                   include_self=True)
@@ -268,48 +278,162 @@ def _wave(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet, failed,
             cid_arc, fail_mark)
 
 
+def _wave_step(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet, failed,
+               m_max: int, diff: int, seq_cap: int, cand_cap: int):
+    """One wave on a pinch's buffers, with no host read: ``_wave``, then
+    the ``failed`` update of an unproductive wave (its examined
+    candidates that the checks rejected), in place and gated on the
+    device by ``n_merged == 0``; a productive wave's ``failed`` is
+    cleared by ``WaveProgram.apply``.  Returns (counts, cvg2, deleted2,
+    new_f, new_t, new_mult); counts is (4,) int64: merged, overflow,
+    backtracked, compared."""
+    (cvg2, deleted2, nf, nt, nm, n_back, n_cmp, n_merged, overflow,
+     cid_arc, fail_mark) = _wave(eg, aset, failed, m_max, diff, seq_cap,
+                                 cand_cap)
+    a_cap = failed.shape[0]
+    failed |= _scatter_true(a_cap, torch.where(
+        fail_mark & (n_merged == 0), cid_arc, a_cap))
+    return (torch.stack([n_merged, overflow, n_back, n_cmp]), cvg2,
+            deleted2, nf, nt, nm)
+
+
+@contextlib.contextmanager
+def _host_sync_is_error():
+    """Any host synchronisation on the card raises inside (a wave that
+    syncs could not be captured)."""
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():  # "a prototype feature", once a process
+        warnings.simplefilter("ignore", UserWarning)
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+class WaveProgram:
+    """The waves of one pinch as one program over buffers of fixed shape
+    (the JAX package's jitted ``_wave`` at a fixed arc capacity).
+
+    The arc table lives in buffers sized to its rows at entry: a merge
+    only remaps, drops and aggregates rows, so it never grows.  After a
+    productive wave ``apply`` copies ``rebuild_arcs``'s exact table in
+    and refills the tail with (-1, -1, 0) rows, which are never
+    candidates and sort after every real row, so a wave gives what it
+    gives on the exact table.  Coverage, the deleted mask and ``failed``
+    are buffers updated in place.
+
+    On a card the first wave runs eagerly, with any host synchronisation
+    an error: a real wave, and the warm-up (the kernel build, the sorts'
+    workspaces, the identity kernel's shared-memory attribute).  The
+    second is captured once into a ``torch.cuda.CUDAGraph`` and every
+    later wave replays it (captured work does not run at capture, so the
+    captured wave is a replay too); a capture or replay that fails
+    raises.  On the CPU every wave calls ``_wave_step``."""
+
+    def __init__(self, eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet,
+                 m_max: int, diff: int):
+        self.dev = eg.length.device
+        self.cvg, self.deleted = eg.cvg.clone(), eg.deleted.clone()
+        self.eg = eg._replace(cvg=self.cvg, deleted=self.deleted)
+        self.aset = arcs_mod.ArcSet(  # ``_wave`` reads no ``n``
+            aset.from_ed.clone(), aset.to_ed.clone(), aset.mult.clone(),
+            aset.n)
+        self.failed = torch.zeros_like(aset.from_ed, dtype=torch.bool)
+        self.args = (m_max, diff, SEQ_CAP, CAND_CAP)
+        self.waves = 0
+        self.graph = None
+        self.outs = None
+        self.identity_launches = 0  # identity launches a replay executes
+
+    def _step(self):
+        return _wave_step(self.eg, self.aset, self.failed, *self.args)
+
+    def launch(self):
+        """Enqueue one wave; returns its (4,) counts on the device."""
+        global REPLAYS
+        if self.dev.type != "cuda":
+            self.outs = self._step()
+        elif self.waves == 0:
+            with torch.cuda.device(self.dev), _host_sync_is_error():
+                self.outs = self._step()
+        else:
+            with torch.cuda.device(self.dev):
+                if self.graph is None:
+                    self._capture()
+                self.graph.replay()
+            REPLAYS += 1
+            lcs.IDENTITY_LAUNCHES += self.identity_launches
+        self.waves += 1
+        return self.outs[0]
+
+    def _capture(self) -> None:
+        global CAPTURES
+        graph = torch.cuda.CUDAGraph()
+        captured = lcs.IDENTITY_CAPTURED
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream(self.dev)):
+            self.outs = self._step()
+        self.identity_launches = lcs.IDENTITY_CAPTURED - captured
+        self.graph = graph
+        CAPTURES += 1
+
+    def apply(self) -> arcs_mod.ArcSet:
+        """After a productive wave: its coverage and deleted mask into the
+        buffers, its remapped arcs rebuilt and copied into the arc buffers
+        over (-1, -1, 0) rows, ``failed`` cleared (a replay overwrites the
+        wave's outputs, so everything is copied out first).  Returns the
+        rebuilt exact-size table."""
+        _counts, cvg2, deleted2, nf, nt, nm = self.outs
+        exact = rebuild_arcs(nf, nt, nm, self.eg.twin)
+        self.cvg.copy_(cvg2)
+        self.deleted.copy_(deleted2)
+        n = exact.from_ed.shape[0]
+        for buf, rows, fill in zip(self.aset[:3], exact[:3], (-1, -1, 0)):
+            buf[:n].copy_(rows)
+            buf[n:].fill_(fill)
+        self.failed.zero_()
+        return exact
+
+
 def pinch(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet,
           k: int, merge_level: int):
     """Wave-parallel Tour-Bus to a fixpoint (bubble.c:2123-2126's
-    HasChanged loop).  Returns (eg, aset, stats): stats count pairs
-    backtracked, compared and merged, waves, productive waves (those
-    that merged), the loop's wall seconds and seconds per wave.
+    HasChanged loop).  Returns (eg, aset, stats): the graph and the
+    exact-size arc table of the last productive wave (the inputs when
+    no wave merged); stats count pairs backtracked, compared and merged,
+    waves, productive waves (those that merged), the loop's wall seconds
+    and seconds per wave.
 
     Every productive wave deletes at least one edge; between graph
     changes each unproductive wave retires a fresh CAND_CAP-chunk of
-    the remaining candidates (the ``failed`` mask)."""
+    the remaining candidates (the ``failed`` mask).  The waves run as
+    one ``WaveProgram``, one blocking read of four counts a wave."""
     m_max, diff = _params_for(merge_level)
     stats = {"backtracked": 0, "compared": 0, "merged": 0, "waves": 0,
              "productive": 0, "seconds": 0.0}
     t0 = time.time()
-    failed = torch.zeros_like(aset.from_ed, dtype=torch.bool)
     # a graph without a single arc row has no bubble (and no candidate
     # for ``_wave`` to shape its chains on)
-    while aset.from_ed.shape[0]:
-        stats["waves"] += 1
-        (cvg2, deleted2, nf, nt, nm, n_back, n_cmp, n_merged,
-         overflow, cid_arc, fail_mark) = _wave(
-            eg, aset, failed, m_max, diff, SEQ_CAP, CAND_CAP)
-        n, over, back, cmp_ = (int(x) for x in torch.stack(
-            [n_merged, overflow, n_back, n_cmp]).tolist())
-        stats["backtracked"] += back
-        stats["compared"] += cmp_
-        if n == 0:
-            if over == 0:
-                break
-            # chunk exhausted without a merge: retire it, examine the
-            # next CAND_CAP-chunk of candidates in the next wave
-            a_cap = failed.shape[0]
-            failed = failed | _scatter_true(
-                a_cap, torch.where(fail_mark, cid_arc, a_cap))
-            continue
-        stats["merged"] += n
-        stats["productive"] += 1
-        eg = eg._replace(cvg=cvg2, deleted=deleted2)
-        aset = rebuild_arcs(nf, nt, nm, eg.twin)
-        # the merge changed the graph: every rejected candidate may be
-        # mergeable now — clear the mask (sized to the rebuilt ArcSet)
-        failed = torch.zeros_like(aset.from_ed, dtype=torch.bool)
+    if aset.from_ed.shape[0]:
+        prog = WaveProgram(eg, aset, m_max, diff)
+        while True:
+            stats["waves"] += 1
+            n, over, back, cmp_ = prog.launch().tolist()
+            stats["backtracked"] += back
+            stats["compared"] += cmp_
+            if n == 0:
+                if over == 0:
+                    break
+                # chunk exhausted without a merge: the wave retired it
+                # into ``failed``; the next examines the next chunk
+                continue
+            stats["merged"] += n
+            stats["productive"] += 1
+            # the merge changed the graph: every rejected candidate may
+            # be mergeable now (``apply`` clears the mask)
+            aset = prog.apply()
+        if stats["productive"]:
+            eg = prog.eg
     stats["seconds"] = time.time() - t0
     stats["s_per_wave"] = stats["seconds"] / max(stats["waves"], 1)
     return eg, aset, stats

@@ -14,7 +14,9 @@ into ``_build/`` and loaded with ``ctypes`` (``kernels/_nvcc.py``).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (``lcs_scores_plain``, ``identity_check_plain``) only
-for CPU tensors.
+for CPU tensors.  ``identity_check`` may be captured into a CUDA graph
+(the Tour-Bus wave is, ``graph/tourbus.WaveProgram``): its launch sets
+no attribute and reads nothing back, and its counter counts executions.
 """
 
 from __future__ import annotations
@@ -31,8 +33,13 @@ MAX_CAP = 512  # the kernels keep at most 512 bits of V a pair
 MAX_SLOTS = 64  # node slots a path in identity_check (its shared memory)
 
 LAUNCHES = 0  # lcs_launch launches since the last reset (plain runs not counted)
-IDENTITY_LAUNCHES = 0  # identity_launch launches since the last reset
+# identity_launch executions since the last reset: each launch outside a
+# CUDA graph capture, and each replay of a graph that holds one (the
+# graph's owner adds them, ``graph/tourbus.WaveProgram``)
+IDENTITY_LAUNCHES = 0
+IDENTITY_CAPTURED = 0  # identity_launch launches recorded into CUDA graphs
 _LIB = None
+_RESERVED = set()  # devices where identity_reserve() ran
 
 
 def build() -> str:
@@ -53,6 +60,8 @@ def _load():
         lib.identity_launch.argtypes = ([ctypes.c_void_p] * 11
                                         + [ctypes.c_longlong] * 6
                                         + [ctypes.c_void_p])
+        lib.identity_reserve.restype = ctypes.c_int
+        lib.identity_reserve.argtypes = []
         lib.lcs_max_cap.restype = ctypes.c_longlong
         lib.lcs_max_cap.argtypes = []
         if lib.lcs_max_cap() != MAX_CAP:
@@ -60,6 +69,22 @@ def _load():
                                "on the longest row")
         _LIB = lib
     return _LIB
+
+
+def _reserve(lib, dev) -> None:
+    """Raise identity_kernel's shared-memory limit on ``dev`` once, before
+    its first launch there; never inside a CUDA graph capture (the first
+    wave of a pinch runs eagerly, so a captured wave finds it done)."""
+    if dev.index in _RESERVED:
+        return
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"identity kernel captured on {dev} before any "
+                           f"launch there outside a capture")
+    err = lib.identity_reserve()
+    if err:
+        raise RuntimeError(f"identity kernel: cudaFuncSetAttribute failed: "
+                           f"CUDA error {err}")
+    _RESERVED.add(dev.index)
 
 
 def _check(a, b, la, lb, cap: int) -> None:
@@ -205,7 +230,7 @@ def identity_check(maj, mnr, found, length, seq_off, seq_pool, diff: int,
     The kernel computes the true LCS; the plain version pads as the JAX
     package does, so the two agree where the pool holds no byte 254 or
     255 (an EdgeGraph's holds bases 0-3)."""
-    global IDENTITY_LAUNCHES
+    global IDENTITY_LAUNCHES, IDENTITY_CAPTURED
     _check_identity(maj, mnr, found, length, seq_off, seq_pool, seq_cap)
     dev = maj.device
     if dev.type == "cpu":
@@ -216,6 +241,7 @@ def identity_check(maj, mnr, found, length, seq_off, seq_pool, diff: int,
     lib = _load()
     c, m = maj.shape
     with torch.cuda.device(dev):
+        _reserve(lib, dev)
         longs = torch.empty((3, c), dtype=torch.int64, device=dev)
         flags = torch.empty((2, c), dtype=torch.bool, device=dev)
         if c:
@@ -230,7 +256,10 @@ def identity_check(maj, mnr, found, length, seq_off, seq_pool, diff: int,
             if err:
                 raise RuntimeError(f"identity kernel launch failed: CUDA "
                                    f"error {err}")
-            IDENTITY_LAUNCHES += 1
+            if torch.cuda.is_current_stream_capturing():
+                IDENTITY_CAPTURED += 1
+            else:
+                IDENTITY_LAUNCHES += 1
     return longs[0], longs[1], flags[0], flags[1], longs[2]
 
 

@@ -2,24 +2,30 @@
 """Where the contig stage's device time goes: ``torch.profiler`` over the
 PyTorch port's ``contig`` on one CUDA card.
 
-    python3 tools/prof_contig.py [pairs]
+    python3 tools/prof_contig.py [pairs] [--unprofiled]
 
 Simulated reads (``perf_e2e.synth``, seed 0, 100 pairs a transcript;
 default 100,000 pairs), K = 23: ``pregraph`` through ``cli.main``, then
 ``contig -g`` twice on its files, the first unprofiled (the kernel
 builds, the allocator warms; its seconds are the stage's without the
-profiler), the second under the profiler.  Prints the stage's seconds,
-the Tour-Bus waves and seconds a wave, the device-busy share of the
-profiled stage (the sum of kernel time over wall time), the launches a
-wave, the identity kernel's device time a launch (the wave's one call of
-``kernels.lcs.identity_check``) and the twelve kernels with the most
-device time.  Then the kernels of ``csrc/lcs.cu`` alone, 20 launches
-each under the profiler: the identity kernel at a real wave's shape (12
-of 1,024 rows compared, paths of 24 bases) and at 1,024 x 384 with full
-paths, and the standalone LCS kernel at 1,024 x 384 with la = lb = 384;
-their device time a launch, which CUDA events around one call cannot
-separate from the wrapper's host time.  The last line is a JSON object
-of the same.  Imports nothing of JAX.
+profiler), the second under the profiler.  The stage's Tour-Bus waves
+run as one wave program (``graph/tourbus.WaveProgram``): the first wave
+eagerly, the rest as replays of one captured CUDA graph.  Prints the
+stage's seconds, the Tour-Bus waves and seconds a wave, the captures and
+replays, the device-busy share of the profiled stage (the sum of kernel
+time over wall time), the kernels executed a wave and the graph launches
+(``cudaGraphLaunch`` calls) a wave, the identity kernel's device time a
+launch (the wave's one identity check) and the twelve kernels with the
+most device time, those run by the replays included.  Then the kernels
+of ``csrc/lcs.cu`` alone, 20 launches each under the profiler: the
+identity kernel at a real wave's shape (12 of 1,024 rows compared, paths
+of 24 bases) and at 1,024 x 384 with full paths, and the standalone LCS
+kernel at 1,024 x 384 with la = lb = 384; their device time a launch,
+which CUDA events around one call cannot separate from the wrapper's
+host time.  The last line is a JSON object of the same.  With
+``--unprofiled`` only the first ``contig -g`` runs (a size whose
+profile would not fit, such as 1,000,000 pairs): its seconds, waves,
+seconds a wave and peak bytes.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import perf_e2e  # noqa: E402
 import profsum  # noqa: E402
 from soapdenovo_trans_tpu_torch import cli  # noqa: E402
+from soapdenovo_trans_tpu_torch.graph import tourbus  # noqa: E402
 from soapdenovo_trans_tpu_torch.kernels import lcs  # noqa: E402
 from tests.test_torch_lcs_gpu import (identity_case,  # noqa: E402
                                       identity_to_device)
@@ -93,15 +100,31 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("prof_contig: torch sees no CUDA device", file=sys.stderr)
         return 1
-    pairs = int(sys.argv[1]) if len(sys.argv) > 1 else 100_000
+    args = [a for a in sys.argv[1:] if a != "--unprofiled"]
+    pairs = int(args[0]) if args else 100_000
     card = profsum.card()
     os.environ["SOAPDENOVO_TORCH_DEVICE"] = "cuda"
     with tempfile.TemporaryDirectory() as tmp:
         cfg = perf_e2e.synth(tmp, n_tx=pairs // 100, n_pairs=pairs, seed=0)
         prefix = os.path.join(tmp, "asm")
         cli.main(["pregraph", "-s", cfg, "-K", "23", "-o", prefix])
+        torch.cuda.reset_peak_memory_stats()
+        tourbus.CAPTURES = tourbus.REPLAYS = lcs.IDENTITY_LAUNCHES = 0
         plain_res, plain_s = timed_contig(prefix)
+        plain = {"card": card, "pairs": pairs,
+                 "what": "contig -g on one card, unprofiled",
+                 "stage_s": plain_s, "phase_s": plain_res.phase_seconds,
+                 **plain_res.tourbus,
+                 "s_per_wave_stage": plain_s / max(
+                     plain_res.tourbus["waves"], 1),
+                 "captures": tourbus.CAPTURES, "replays": tourbus.REPLAYS,
+                 "identity_launches": lcs.IDENTITY_LAUNCHES,
+                 "peak_bytes": torch.cuda.max_memory_allocated()}
+        if "--unprofiled" in sys.argv:
+            print(json.dumps(plain))
+            return 0
         lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
+        tourbus.CAPTURES = tourbus.REPLAYS = 0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             res, wall = timed_contig(prefix)
@@ -109,6 +132,10 @@ def main() -> int:
     if lcs.IDENTITY_LAUNCHES != waves or plain_res.tourbus["waves"] != waves:
         raise AssertionError(f"{lcs.IDENTITY_LAUNCHES} identity launches "
                              f"over {waves} waves")
+    if (tourbus.CAPTURES, tourbus.REPLAYS) != (int(waves >= 2),
+                                               max(waves - 1, 0)):
+        raise AssertionError(f"{tourbus.CAPTURES} captures and "
+                             f"{tourbus.REPLAYS} replays over {waves} waves")
     summary = profsum.device_summary(prof, wall)
     id_s, id_n = profsum.kernel_time(prof, "identity_kernel")
     numbers = {
@@ -117,7 +144,11 @@ def main() -> int:
         "phase_s": res.phase_seconds, "waves": waves,
         "productive_waves": res.tourbus["productive"],
         "s_per_wave": plain_s / max(waves, 1),
+        "captures": tourbus.CAPTURES, "replays": tourbus.REPLAYS,
         "launches_per_wave": summary["kernel_launches"] / max(waves, 1),
+        "graph_launches_per_wave": profsum.runtime_calls(
+            prof, "cudaGraphLaunch") / max(waves, 1),
+        "unprofiled": plain,
         "identity_kernel": {"seconds": id_s, "launches": id_n,
                             "us_per_launch": 1e6 * id_s / max(id_n, 1)},
         "lcs_kernel_launches": lcs.LAUNCHES,

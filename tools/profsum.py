@@ -42,6 +42,12 @@ def kernel_time(prof, name: str) -> tuple:
             sum(e.count for e in rows))
 
 
+def runtime_calls(prof, name: str) -> int:
+    """Host calls of the CUDA runtime function ``name`` (such as
+    ``cudaGraphLaunch``) in ``prof``."""
+    return sum(e.count for e in prof.key_averages() if e.key == name)
+
+
 def print_top(tag: str, summary: dict) -> None:
     for row in summary["top_kernels"]:
         print(f"[{tag}] {row['seconds']:8.3f}s {row['launches']:7d}x "
