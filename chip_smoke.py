@@ -8,12 +8,17 @@ Phases, each of which raises on failure:
 
 1. device and environment: the card's name and power limit (from
    ``nvidia-smi``), torch and CUDA versions; no card is an error;
-2. build both sources of ``soapdenovo_trans_tpu_torch/csrc``, the
-   merge-path kernel and the Tour-Bus kernels (``lcs.cu``: the identity
-   check and the standalone LCS), one ``nvcc`` each, started together;
-   each build's seconds are printed;
+2. build the three sources of ``soapdenovo_trans_tpu_torch/csrc``, the
+   merge-path kernel, the Tour-Bus kernels (``lcs.cu``: the identity
+   check and the standalone LCS) and the wave's candidate body
+   (``wave.cu``: chains and claim_apply), one ``nvcc`` each, started
+   together; each build's seconds are printed;
 3. each kernel against its plain PyTorch version on the card.  The
-   identity kernel (``kernels/lcs.identity_check``, the wave's path
+   chains and claim/apply kernels (``kernels/wave``): every case of
+   ``tests/test_torch_wave_kernels_gpu.py`` (loaded by path; C = 64 at
+   m = 3, 9 and 30, random and mixed ones at C = 1,024), all outputs
+   exact, and both timed (CUDA events, host us, the plain versions, the
+   bounds) at C = 1,024, m = 3.  The identity kernel (``kernels/lcs.identity_check``, the wave's path
    lengths, gate, LCS and verdict in one launch): the identity cases of
    ``tests/test_torch_lcs_gpu.py`` (loaded by path), all five outputs
    exact, and the median CUDA-event times of the kernel and the plain
@@ -49,8 +54,9 @@ Phases, each of which raises on failure:
    names its own path; ``.gz`` files decompressed); and ``all`` on a
    mesh of two logical shards of each device (``cpu,cpu`` and
    ``cuda:0,cuda:0``) must write the files of the one-device ``all``;
-   the cuda runs must execute the identity kernel once a Tour-Bus wave
-   of their contig stages, and run each pinch as a wave program
+   the cuda runs must execute the chains, identity and claim/apply
+   kernels once each a Tour-Bus wave of their contig stages, and run
+   each pinch as a wave program
    (``graph/tourbus.WaveProgram``): one CUDA graph captured a pinch of
    two waves or more, every wave after the first a replay (the
    standalone LCS kernel's launches, now 0, are printed);
@@ -64,16 +70,19 @@ Phases, each of which raises on failure:
 6. the main path: ``all -K 23`` through ``cli.main`` on the same
    500,000 pairs, with the launch
    counts reset just before (``all`` resets the peak-memory statistics
-   before each stage).  The identity kernel must execute once a
-   Tour-Bus wave, the pinch be captured once and every later wave be a
-   replay (the standalone LCS kernel's launches, now 0, are printed;
-   so are the captures, the replays and the host microseconds of a
-   replay, ``WaveRecorder``); the identity inputs of every 512th wave
-   are kept (16 waves: copies of their node lists and found flags, and
-   the graph's tensors, which every wave shares; the peak bytes of
-   contig, map and scaff then include them, and the script prints
-   their bytes) and, after the run, held against the plain version and
-   timed (the kernel on the waves the main path gives it).  Until the
+   before each stage).  The chains, identity and claim/apply kernels
+   must execute once each a Tour-Bus wave, the pinch be captured once
+   and every later wave be a replay (the standalone LCS kernel's
+   launches, now 0, are printed; so are the captures, the replays and
+   the host microseconds of a replay, ``WaveRecorder``); the identity
+   inputs of every 512th wave are kept (16 waves: copies of their node
+   lists and found flags, and the graph's tensors, which every wave
+   shares; the peak bytes of contig, map and scaff then include them,
+   and the script prints their bytes), and the chains and claim/apply
+   inputs of the same waves and of every 64th productive one, copied
+   to the host; after the run each kernel is held against its plain
+   version and timed on them (the kernels on the waves the main path
+   gives them), and their coverage must lie in [0, 16,000].  Until the
    LCS kernel the contig stage at 1,000,000 pairs took about 950 s on an
    H100 (31,426 waves of 30 ms), more than this script's time allows.
    Checks: the .contig headers and sequence lengths agree with
@@ -101,8 +110,9 @@ Phases, each of which raises on failure:
    merge kernel; at 300,000 pairs Tour-Bus after splitting runs 4,792
    waves, 123-159 s, too long beside phase 6): .path holds as many
    records as the recorder counted, .markOnEdge one line per edge, the
-   repeat edges split are reported, and the identity kernel executed
-   once a Tour-Bus wave of ``contig -R``, its pinch captured once and
+   repeat edges split are reported, and the chains, identity and
+   claim/apply kernels executed once each a Tour-Bus wave of ``contig
+   -R``, its pinch captured once and
    replayed (captures, replays and host microseconds a replay printed).
    Seconds of every part and peak bytes are printed;
 8. the mesh path at full width, on four logical shards of the one
@@ -126,13 +136,15 @@ Phases, each of which raises on failure:
    byte for byte (``.gz`` files decompressed, the prefix replaced), and
    the pregraph edges must decode to the same sequences.  Each fixture
    is one counting build unit, so the merge kernel is not launched here;
-   the identity kernel executes once a wave of their contig stages,
-   and a pinch of two waves or more is captured once and replayed.
+   the chains, identity and claim/apply kernels execute once each a
+   wave of their contig stages, and a pinch of two waves or more is
+   captured once and replayed.
 
 The lines before the last two are JSON objects of phase 9's, phase 8's,
 phase 7's and the main path's numbers, last to first; the
-second-to-last describes the three kernels (the standalone LCS one with
-``"on_main_path": false``); the last line is
+second-to-last describes the five kernels (merge_path, identity, lcs,
+chains, claim_apply; the standalone LCS one with ``"on_main_path":
+false``); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing
 of the JAX package (``soapdenovo_trans_tpu``), which it checks after
 phase 9; the reads come from ``perf_e2e.synth`` and the fixtures of
@@ -257,6 +269,16 @@ def phase_build(kernels) -> dict:
             for m, sec in zip(kernels, seconds)}
 
 
+def bound_of(moved: int, ops: int) -> tuple:
+    """(bound ms, what sets it): the larger of ``moved`` bytes over the
+    memory rate and ``ops`` 32-bit integer operations over the CUDA
+    cores' integer rate."""
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / INT32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
 def lcs_bound_ms(la, lb, cap: int) -> tuple:
     """(bound ms, what sets it) of one LCS call on this call's lengths.
     The bytes it must move: each row's a[:min(la, cap)] and
@@ -268,10 +290,7 @@ def lcs_bound_ms(la, lb, cap: int) -> tuple:
     n_a, n_b = la.clamp(0, cap), lb.clamp(0, cap)
     moved = 24 * p + int(n_a.sum()) + int(n_b.sum())
     steps = int((n_a * ((n_b + 63) // 64)).sum())
-    by_bytes = moved / HBM_BYTES_PER_S * 1e3
-    by_ops = 8 * steps / INT32_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                           "operations")
+    return bound_of(moved, 8 * steps)
 
 
 def check_lcs(lcs, a, b, la, lb, cap: int) -> int:
@@ -353,10 +372,7 @@ def identity_bound_ms(inputs, outputs) -> tuple:
              + 8 * int(listed[compared].sum())
              + int((len_a + len_b)[compared].sum()) + 26 * c)
     steps = int((len_a * ((len_b + 63) // 64))[compared].sum())
-    by_bytes = moved / HBM_BYTES_PER_S * 1e3
-    by_ops = 8 * steps / INT32_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                           "operations")
+    return bound_of(moved, 8 * steps)
 
 
 def check_identity(lcs, inputs) -> tuple:
@@ -419,51 +435,235 @@ def phase_identity(lcs, dev) -> dict:
     return {"max_abs_err": err, "synthetic": times}
 
 
+def in_range(x, e: int) -> int:
+    return int(((x >= 0) & (x < e)).sum())
+
+
+def chains_bound_ms(wave, inputs, outputs) -> tuple:
+    """(bound ms, what sets it) of one chains call on this call's inputs
+    and plain outputs.  The bytes it must move: u, t0 and cmask (17 B a
+    row); a prev entry for each walk step from a node in 0..E-1 and a
+    twin entry for each path node, fork and t0 in 0..E-1 (8 B each); the
+    outputs, four (C, m) int64 lists, s_node, ends, found and the count
+    (32·C·m + 41·C + 8 B).  The operations: (m + 2)(m + 1) int64 compares
+    a row for the meeting point and 2m(2m + 4) for the clash test, two
+    32-bit operations each."""
+    prev, u, t0, _cmask, _twin, m = inputs
+    (c,), e = u.shape, prev.shape[0]
+    maj, mnr, _tw_maj, _tw_mnr, s_node = outputs[:5]
+    steps = sum(in_range(wave._walk(prev, start, n)[:, :-1], e)
+                for start, n in ((t0, m + 2), (u, m + 1)))
+    twins = sum(in_range(x, e) for x in (maj, mnr, s_node, t0))
+    moved = 17 * c + 8 * (steps + twins) + 32 * c * m + 41 * c + 8
+    return bound_of(moved, 2 * c * ((m + 2) * (m + 1) + 2 * m * (2 * m + 4)))
+
+
+def claim_bound_ms(inputs) -> tuple:
+    """(bound ms, what sets it) of one claim_apply call on this call's
+    inputs.  The bytes it must move: ok (1 B a row) and each ok row's
+    four node lists, ends, len_a and len_b (32·m + 48 B); cvg and deleted
+    (9 B an edge) and the arc rows (24 B a row); a length for each node
+    in 0..E-1 of an ok row's two paths and a twin for each of its cover
+    nodes, at most one a minority node (8 B each); the outputs, cvg2 and
+    deleted2 (9 B an edge), the new arc rows (24 B a row) and the count.
+    The operations: each ok row's claims (4m + 4) and spans (m² for the
+    covers), two 32-bit operations each."""
+    maj, mnr, ok, cvg, from_ed = inputs[0], inputs[1], inputs[5], \
+        inputs[8], inputs[12]
+    (c, m), e, a = maj.shape, cvg.shape[0], from_ed.shape[0]
+    n_ok = int(ok.sum())
+    nodes = in_range(maj[ok], e) + 2 * in_range(mnr[ok], e)
+    moved = c + n_ok * (32 * m + 48) + 18 * e + 48 * a + 8 * nodes + 8
+    return bound_of(moved, 2 * n_ok * (4 * m + 4 + m * m))
+
+
+def check_wave(wave, cases, chains_in, claim_in) -> tuple:
+    """Both wave kernels against their plain versions on one call's
+    inputs each: returns (max abs error, which must be 0, the plain
+    chains outputs)."""
+    got = wave.chains(*chains_in), wave.claim_apply(*claim_in)
+    want = wave.chains_plain(*chains_in), wave.claim_apply_plain(*claim_in)
+    torch.cuda.synchronize()
+    errs = [cases.max_abs_err(g, w) for g, w in zip(got, want)]
+    if any(errs):
+        raise AssertionError(f"wave kernels differ from their plain "
+                             f"versions (chains, claim_apply max abs err "
+                             f"{errs}; C={chains_in[1].shape[0]}, "
+                             f"m={chains_in[5]}, E={claim_in[8].shape[0]}, "
+                             f"A={claim_in[12].shape[0]})")
+    return max(errs), want[0]
+
+
+def time_wave(wave, chains_in, claim_in, chains_out, reps: int = 10) -> dict:
+    """Both wave kernels and their plain versions timed on one call's
+    inputs (median CUDA-event ms of a wrapper call, its Python included;
+    host us of a call), with the bounds."""
+    (c, m), e = claim_in[0].shape, claim_in[8].shape[0]
+    out = {"c": c, "m": m, "e": e, "a": claim_in[12].shape[0],
+           "ok_rows": int(claim_in[5].sum())}
+    for name, fn, plain, xs, bound in (
+            ("chains", wave.chains, wave.chains_plain, chains_in,
+             chains_bound_ms(wave, chains_in, chains_out)),
+            ("claim_apply", wave.claim_apply, wave.claim_apply_plain,
+             claim_in, claim_bound_ms(claim_in))):
+        out[name] = {"ms": cuda_ms(lambda: fn(*xs), reps),
+                     "host_us": host_us(lambda: fn(*xs)),
+                     "plain_ms": cuda_ms(lambda: plain(*xs), reps=3, warm=1),
+                     "bound_ms": bound[0], "bound_by": bound[1]}
+    return out
+
+
+def phase_wave(wave, dev) -> dict:
+    """The chains and claim/apply kernels against their plain versions on
+    the card test's cases (every named case of
+    ``tests/test_torch_wave_kernels_gpu.py`` at m = 3, 9 and 30; random
+    and mixed ones at C = 1,024), all outputs exact, and timed at a
+    wave's C = 1,024 and m = 3 on its random and mixed cases."""
+    cases = load_test("test_torch_wave_kernels_gpu.py")
+    err = 0
+    for i, (name, c, m) in enumerate(cases.GPU_CASES):
+        case = cases.wave_case(name, c, m, 300 + i)
+        err = max(err, check_wave(
+            wave, cases, (*cases.chains_inputs(case, dev), m),
+            cases.claim_inputs(case, m, i, dev))[0])
+    log(f"[wave] {len(cases.GPU_CASES)} cases (C = 64 and 1,024; m = 3, 9, "
+        f"30): chains and claim/apply equal to their plain versions "
+        f"(exact, tolerance 0)")
+    times = {}
+    for name in ("mixed", "random"):
+        case = cases.wave_case(name, 1024, 3, 7)
+        chains_in = (*cases.chains_inputs(case, dev), 3)
+        claim_in = cases.claim_inputs(case, 3, 7, dev)
+        e, chains_out = check_wave(wave, cases, chains_in, claim_in)
+        err = max(err, e)
+        times[f"{name}_1024x3"] = time_wave(wave, chains_in, claim_in,
+                                            chains_out)
+    log("[wave] " + json.dumps(times))
+    return {"max_abs_err": err, "synthetic": times}
+
+
+def wave_on_kept_inputs(wave, kept, dev) -> dict:
+    """The chains and claim/apply kernels on the inputs kept from the main
+    path's waves (host copies, moved back to the card one wave at a
+    time): each held against its plain version, the coverage checked to
+    lie in [0, 16,000] (the claim key's ranks need it), both kernels and
+    both plain versions timed on each; medians and maxima."""
+    cases = load_test("test_torch_wave_kernels_gpu.py")
+    err, rows = 0, []
+    for call in kept:
+        chains_in, claim_in = (tuple(x.to(dev) if isinstance(
+            x, torch.Tensor) else x for x in xs) for xs in call)
+        cvg = claim_in[8]
+        if int(cvg.min()) < 0 or int(cvg.max()) > cases.MAX_COV:
+            raise AssertionError(f"a wave's coverage lies outside [0, "
+                                 f"{cases.MAX_COV}]: {int(cvg.min())}, "
+                                 f"{int(cvg.max())}")
+        e, chains_out = check_wave(wave, cases, chains_in, claim_in)
+        err = max(err, e)
+        rows.append(time_wave(wave, chains_in, claim_in, chains_out, reps=5))
+        del chains_in, claim_in, chains_out
+    out = {"calls_kept": len(kept), "max_abs_err": err,
+           "coverage_in_range": True,
+           "ok_rows_max": max(r["ok_rows"] for r in rows),
+           "e": rows[0]["e"], "a": rows[0]["a"], "c": rows[0]["c"],
+           "m": rows[0]["m"]}
+    for name in ("chains", "claim_apply"):
+        got = [r[name] for r in rows]
+        bound = sorted((g["bound_ms"], g["bound_by"]) for g in got)
+        out[name] = {
+            "ms": statistics.median(g["ms"] for g in got),
+            "ms_max": max(g["ms"] for g in got),
+            "host_us": statistics.median(g["host_us"] for g in got),
+            "plain_ms": statistics.median(g["plain_ms"] for g in got),
+            "bound_ms": bound[len(bound) // 2][0],
+            "bound_by": bound[len(bound) // 2][1]}
+    return out
+
+
 class WaveRecorder:
     """Wraps the Tour-Bus wave program (``graph/tourbus.WaveProgram``)
     while a path runs: counts the waves it launches, times the host's
     part of each launch (the device not waited for: the eager first
     wave's launches, the capture, a graph replay), and keeps the
-    identity-check inputs of every ``every``-th wave (0: none).  A
-    wave's identity inputs are the tensors of the last
-    ``kernels.lcs.identity_check`` call, the eager wave's or the one
-    captured into the graph, which each replay refills: a kept wave's
-    node lists and found flags are copied right after its launch (in
-    stream order), the graph tensors, which every wave of a pinch
-    shares, kept by reference.  They stay allocated until the run ends:
-    the stages' peak bytes hold them."""
+    identity-check inputs of every ``every``-th wave (0: none) and the
+    inputs of the wave's chains and claim/apply kernels of every
+    ``every``-th wave and every ``every_productive``-th productive one
+    (0: none).  A wave's inputs are the tensors of the last call of each
+    wrapper, the eager wave's or the one captured into the graph, which
+    each replay refills.  A kept wave's identity node lists and found
+    flags are copied on the card right after its launch (in stream
+    order), the graph tensors, which every wave of a pinch shares, kept
+    by reference; they stay allocated until the run ends, so the stages'
+    peak bytes hold them.  The chains and claim/apply inputs are copied
+    to the host (a blocking copy after the launch; at a productive wave,
+    before ``apply`` overwrites the buffers), which the peak bytes do not
+    see."""
 
-    def __init__(self, lcs, tourbus, every: int = 0):
-        self.lcs, self.tourbus, self.every = lcs, tourbus, every
-        self.waves, self.kept, self.last = 0, [], None
+    def __init__(self, lcs, wave, tourbus, every: int = 0,
+                 every_productive: int = 0):
+        self.lcs, self.wave, self.tourbus = lcs, wave, tourbus
+        self.every, self.every_productive = every, every_productive
+        self.waves, self.productive, self.kept, self.last = 0, 0, [], None
+        self.kept_wave, self.last_wave = [], {}
         self.host_s = {"eager": [], "capture": [], "replay": []}
-        self.real_identity = lcs.identity_check
-        self.real_launch = tourbus.WaveProgram.launch
+        self.real = {"identity": lcs.identity_check, "chains": wave.chains,
+                     "claim_apply": wave.claim_apply,
+                     "launch": tourbus.WaveProgram.launch,
+                     "apply": tourbus.WaveProgram.apply}
+
+    def keep_wave(self) -> None:
+        self.kept_wave.append(tuple(
+            tuple(x.cpu() if isinstance(x, torch.Tensor) else x
+                  for x in self.last_wave[name])
+            for name in ("chains", "claim_apply")))
 
     def __enter__(self):
+        real = self.real
+
         def identity(*inputs):
             self.last = inputs
-            return self.real_identity(*inputs)
+            return real["identity"](*inputs)
+
+        def chains(*inputs):
+            self.last_wave["chains"] = inputs
+            return real["chains"](*inputs)
+
+        def claim_apply(*inputs):
+            self.last_wave["claim_apply"] = inputs
+            return real["claim_apply"](*inputs)
 
         def launch(prog):
             kind = ("eager", "capture", "replay")[min(prog.waves, 2)]
             t0 = time.perf_counter()
-            counts = self.real_launch(prog)
+            counts = real["launch"](prog)
             self.host_s[kind].append(time.perf_counter() - t0)
             if self.every and self.waves % self.every == 0:
                 maj, mnr, found, *rest = self.last
                 self.kept.append((maj.clone(), mnr.clone(), found.clone(),
                                   *rest))
+                self.keep_wave()
             self.waves += 1
             return counts
 
+        def apply(prog):
+            if self.every_productive and \
+                    self.productive % self.every_productive == 0:
+                self.keep_wave()
+            self.productive += 1
+            return real["apply"](prog)
+
         self.lcs.identity_check = identity
+        self.wave.chains, self.wave.claim_apply = chains, claim_apply
         self.tourbus.WaveProgram.launch = launch
+        self.tourbus.WaveProgram.apply = apply
         return self
 
     def __exit__(self, *exc):
-        self.lcs.identity_check = self.real_identity
-        self.tourbus.WaveProgram.launch = self.real_launch
+        self.lcs.identity_check = self.real["identity"]
+        self.wave.chains = self.real["chains"]
+        self.wave.claim_apply = self.real["claim_apply"]
+        self.tourbus.WaveProgram.launch = self.real["launch"]
+        self.tourbus.WaveProgram.apply = self.real["apply"]
 
     def numbers(self) -> dict:
         """Waves, captures and replays, and the host microseconds of a
@@ -476,18 +676,34 @@ class WaveRecorder:
                 "host_us_capture": us["capture"]}
 
 
-def check_wave_programs(tourbus, lcs, waves, what: str) -> None:
+def wave_executions(lcs, wave) -> tuple:
+    """Executions of the three kernels of a Tour-Bus wave: the identity
+    check, chains and claim_apply."""
+    return (lcs.IDENTITY_LAUNCHES, wave.CHAINS_LAUNCHES,
+            wave.CLAIM_APPLY_LAUNCHES)
+
+
+def reset_counts(merge_path, lcs, wave, tourbus) -> None:
+    """Every kernel's launch count and the wave programs' captures and
+    replays to 0."""
+    merge_path.LAUNCHES = lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
+    wave.CHAINS_LAUNCHES = wave.CLAIM_APPLY_LAUNCHES = 0
+    tourbus.CAPTURES = tourbus.REPLAYS = 0
+
+
+def check_wave_programs(tourbus, lcs, wave, waves, what: str) -> None:
     """The card's pinches ran as wave programs: one capture a pinch of two
-    waves or more, every later wave a replay, one identity kernel
-    execution a wave.  ``waves``: the Tour-Bus waves of each pinch on the
-    card."""
+    waves or more, every later wave a replay, one execution of each
+    kernel of the wave (identity, chains, claim_apply) a wave.  ``waves``:
+    the Tour-Bus waves of each pinch on the card."""
+    n = sum(waves)
     want = (sum(w >= 2 for w in waves), sum(max(w - 1, 0) for w in waves),
-            sum(waves))
-    got = (tourbus.CAPTURES, tourbus.REPLAYS, lcs.IDENTITY_LAUNCHES)
+            n, n, n)
+    got = (tourbus.CAPTURES, tourbus.REPLAYS, *wave_executions(lcs, wave))
     if got != want:
-        raise AssertionError(f"{what}: captures, replays, identity "
-                             f"executions {got}, not {want} for pinches of "
-                             f"{list(waves)} waves")
+        raise AssertionError(f"{what}: captures, replays, identity, chains "
+                             f"and claim_apply executions {got}, not {want} "
+                             f"for pinches of {list(waves)} waves")
 
 
 def identity_on_wave_inputs(lcs, kept) -> dict:
@@ -737,11 +953,11 @@ def copy_prefix(src: str, dst: str, exts=None) -> None:
             shutil.copy(os.path.join(folder, f), dst + f[len(name):])
 
 
-def phase_cpu_gpu(cli, lcs, tourbus, pg_stage, perf_e2e, tmp: str) -> tuple:
+def phase_cpu_gpu(cli, merge_path, lcs, wave, tourbus, pg_stage, perf_e2e,
+                  tmp: str) -> tuple:
     cfg = perf_e2e.synth(tmp, n_tx=40, n_pairs=3000, seed=1)
     default_rows = pg_stage.TARGET_BUILD_ROWS
-    lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
-    tourbus.CAPTURES = tourbus.REPLAYS = 0
+    reset_counts(merge_path, lcs, wave, tourbus)
     pinches = []
 
     def stage(argv, device):  # the card's Tour-Bus waves, a pinch each
@@ -809,13 +1025,13 @@ def phase_cpu_gpu(cli, lcs, tourbus, pg_stage, perf_e2e, tmp: str) -> tuple:
         raise AssertionError(f"the cuda runs launched the identity kernel "
                              f"{lcs.IDENTITY_LAUNCHES} times over {waves} "
                              f"Tour-Bus waves")
-    check_wave_programs(tourbus, lcs, pinches, "the cuda runs")
-    log(f"[parity] the cuda runs launched the identity kernel "
-        f"{lcs.IDENTITY_LAUNCHES} times, once a Tour-Bus wave; "
-        f"{tourbus.CAPTURES} wave captures and {tourbus.REPLAYS} replays "
-        f"over pinches of {pinches} waves; the standalone LCS kernel "
-        f"{lcs.LAUNCHES} times")
-    return lcs.LAUNCHES, lcs.IDENTITY_LAUNCHES
+    check_wave_programs(tourbus, lcs, wave, pinches, "the cuda runs")
+    log(f"[parity] the cuda runs executed the identity, chains and "
+        f"claim/apply kernels {wave_executions(lcs, wave)} times, once each "
+        f"a Tour-Bus wave; {tourbus.CAPTURES} wave captures and "
+        f"{tourbus.REPLAYS} replays over pinches of {pinches} waves; the "
+        f"standalone LCS kernel {lcs.LAUNCHES} times")
+    return (merge_path.LAUNCHES, lcs.LAUNCHES, *wave_executions(lcs, wave))
 
 
 def valid_windows(cfg_path: str, k: int) -> int:
@@ -836,15 +1052,16 @@ def valid_windows(cfg_path: str, k: int) -> int:
     return total
 
 
-def phase_slice(cli, merge_path, lcs, cfg: str, tmp: str):
+def phase_slice(cli, merge_path, lcs, wave, tourbus, cfg: str, tmp: str):
     out = os.path.join(tmp, "slice")
     torch.cuda.reset_peak_memory_stats()
-    merge_path.LAUNCHES = lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
+    reset_counts(merge_path, lcs, wave, tourbus)
     t0 = time.time()
     res = run_cli(cli, cfg, out, K, "cuda")
     torch.cuda.synchronize()
     stage_s = time.time() - t0
-    launches = (merge_path.LAUNCHES, lcs.LAUNCHES, lcs.IDENTITY_LAUNCHES)
+    launches = (merge_path.LAUNCHES, lcs.LAUNCHES,
+                *wave_executions(lcs, wave))
     peak = torch.cuda.max_memory_allocated()
     if launches[0] < 1:
         raise AssertionError("main path never launched the merge kernel")
@@ -1024,39 +1241,45 @@ def check_scaffolds(out: str, contig_recs):
     return scaf
 
 
-def phase_all(cli, merge_path, lcs, tourbus, smi: str, tmp: str, cfg: str):
+def phase_all(cli, merge_path, lcs, wave, tourbus, smi: str, tmp: str,
+              cfg: str):
     from soapdenovo_trans_tpu_torch.graph import contig_merge
     from soapdenovo_trans_tpu_torch.ops import dictionary, kmer
     from soapdenovo_trans_tpu_torch.stages import pelinks
 
     out = os.path.join(tmp, "all")
     dev = torch.device("cuda")
-    merge_path.LAUNCHES = lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
-    tourbus.CAPTURES = tourbus.REPLAYS = 0
+    reset_counts(merge_path, lcs, wave, tourbus)
     t0 = time.time()
-    with WaveRecorder(lcs, tourbus, every=512) as recorder:
+    with WaveRecorder(lcs, wave, tourbus, every=512,
+                      every_productive=64) as recorder:
         res = run_stage(cli, ["all", "-s", cfg, "-K", str(K), "-o", out],
                         "cuda")
     all_s = time.time() - t0
-    launches = (merge_path.LAUNCHES, lcs.LAUNCHES, lcs.IDENTITY_LAUNCHES)
+    launches = (merge_path.LAUNCHES, lcs.LAUNCHES,
+                *wave_executions(lcs, wave))
     if launches[0] < 1:
         raise AssertionError("the main path never launched the merge "
                              "kernel")
-    if not launches[2] == recorder.waves == res.contig.tourbus["waves"]:
+    waves = res.contig.tourbus["waves"]
+    if not launches[2] == launches[3] == launches[4] == recorder.waves \
+            == waves:
         raise AssertionError(
-            f"the identity kernel executed {launches[2]} times in "
-            f"{recorder.waves} launched waves over "
-            f"{res.contig.tourbus['waves']} Tour-Bus waves, not once a wave")
-    check_wave_programs(tourbus, lcs, [res.contig.tourbus["waves"]],
-                        "all's contig stage")
+            f"the identity, chains and claim/apply kernels executed "
+            f"{launches[2:]} times in {recorder.waves} launched waves over "
+            f"{waves} Tour-Bus waves, not once each a wave")
+    check_wave_programs(tourbus, lcs, wave, [waves], "all's contig stage")
     program = recorder.numbers()
-    log(f"[all] identity kernel executions {launches[2]} = Tour-Bus waves; "
-        f"standalone LCS kernel launches {launches[1]}; the wave program: "
-        + json.dumps(program))
+    log(f"[all] identity, chains and claim/apply kernel executions "
+        f"{launches[2:]} = Tour-Bus waves; standalone LCS kernel launches "
+        f"{launches[1]}; the wave program: " + json.dumps(program))
     id_wave = identity_on_wave_inputs(lcs, recorder.kept)
-    del recorder
     log("[all] the identity kernel on the inputs of every 512th wave: "
         + json.dumps(id_wave))
+    wave_real = wave_on_kept_inputs(wave, recorder.kept_wave, dev)
+    del recorder
+    log("[all] the chains and claim/apply kernels on the inputs of every "
+        "512th wave and every 64th productive one: " + json.dumps(wave_real))
 
     # the contig stage
     result, table, k = res.contig, res.pregraph.table, K
@@ -1130,7 +1353,8 @@ def phase_all(cli, merge_path, lcs, tourbus, smi: str, tmp: str, cfg: str):
                   "transcript_n50": n50([len(s) for s in scaffolds]),
                   "phase_s": sres.phase_seconds},
         "merge_launches": launches[0], "lcs_launches": launches[1],
-        "identity_launches": launches[2]}
+        "identity_launches": launches[2], "chains_launches": launches[3],
+        "claim_apply_launches": launches[4]}
     peaks = ", ".join(f"{s} {b / 1e9:.2f}" for s, b in res.peak_bytes.items())
     log(f"[all] {all_s:.1f}s: " + ", ".join(
         f"{s} {t:.1f}s" for s, t in res.stage_seconds.items()) +
@@ -1138,7 +1362,7 @@ def phase_all(cli, merge_path, lcs, tourbus, smi: str, tmp: str, cfg: str):
         f"{tb['s_per_wave'] * 1e3:.2f} ms ({program['captures']} capture, "
         f"{program['replays']} replays of {program['host_us_replay']:.1f} "
         f"host us) on {smi}")
-    return (launches, id_wave), numbers, res, out
+    return (launches, id_wave, wave_real), numbers, res, out
 
 
 def timed_stage(cli, argv, seconds: dict, peaks: dict, name: str):
@@ -1169,8 +1393,8 @@ def read_in_gap_records(path: str) -> int:
     return n
 
 
-def phase_flags(cli, merge_path, lcs, tourbus, perf_e2e, smi: str, tmp: str,
-                all_res, cfg: str, all_out: str):
+def phase_flags(cli, merge_path, lcs, wave, tourbus, perf_e2e, smi: str,
+                tmp: str, all_res, cfg: str, all_out: str):
     """Phase 7: the options at full width."""
     from soapdenovo_trans_tpu_torch.io import stagefiles
     from soapdenovo_trans_tpu_torch.ops import dictionary, kmer
@@ -1179,8 +1403,7 @@ def phase_flags(cli, merge_path, lcs, tourbus, perf_e2e, smi: str, tmp: str,
     seconds, peaks = {}, {}
     table = all_res.pregraph.table
     base_n = sum(s.count("N") for _, s in all_res.scaff.recs)
-    merge_path.LAUNCHES = lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
-    tourbus.CAPTURES = tourbus.REPLAYS = 0
+    reset_counts(merge_path, lcs, wave, tourbus)
     t_phase = time.time()
 
     # gap reads, read tables and gap filling on phase 6's contigs
@@ -1260,21 +1483,24 @@ def phase_flags(cli, merge_path, lcs, tourbus, perf_e2e, smi: str, tmp: str,
             f"{pres.edges.n_edges} edges")
     n_path_edges = sum(map(len, recs))
     del recs
-    with WaveRecorder(lcs, tourbus) as recorder:
+    with WaveRecorder(lcs, wave, tourbus) as recorder:
         cres, _table, _k = timed_stage(cli, ["contig", "-R", "-g", reps],
                                        seconds, peaks, "contig -R")
     if cres.reps_split is None:
         raise AssertionError("contig -R did not read .path")
     check_contig_files(reps, cres.contigs.n)
-    launches = (merge_path.LAUNCHES, lcs.LAUNCHES, lcs.IDENTITY_LAUNCHES)
+    launches = (merge_path.LAUNCHES, lcs.LAUNCHES,
+                *wave_executions(lcs, wave))
     if launches[0] < 1:
         raise AssertionError("phase 7 never launched the merge kernel")
-    if not launches[2] == recorder.waves == cres.tourbus["waves"]:
+    waves = cres.tourbus["waves"]
+    if not launches[2] == launches[3] == launches[4] == recorder.waves \
+            == waves:
         raise AssertionError(
-            f"the identity kernel executed {launches[2]} times in "
-            f"{recorder.waves} launched waves over {cres.tourbus['waves']} "
-            f"Tour-Bus waves of contig -R")
-    check_wave_programs(tourbus, lcs, [cres.tourbus["waves"]], "contig -R")
+            f"the identity, chains and claim/apply kernels executed "
+            f"{launches[2:]} times in {recorder.waves} launched waves over "
+            f"{waves} Tour-Bus waves of contig -R")
+    check_wave_programs(tourbus, lcs, wave, [waves], "contig -R")
     program = recorder.numbers()
     numbers = {
         "card": smi, "pairs": CONTIG_PAIRS, "phase_s": time.time() - t_phase,
@@ -1296,16 +1522,17 @@ def phase_flags(cli, merge_path, lcs, tourbus, perf_e2e, smi: str, tmp: str,
                  "s_per_wave": cres.tourbus["s_per_wave"],
                  "wave_program": program},
         "merge_launches": launches[0], "lcs_launches": launches[1],
-        "identity_launches": launches[2]}
+        "identity_launches": launches[2], "chains_launches": launches[3],
+        "claim_apply_launches": launches[4]}
     log(f"[flags] {numbers['phase_s']:.1f}s: " + ", ".join(
         f"{name} {sec:.1f}s" for name, sec in seconds.items()) +
         f"; {pres.path_reads} read paths, {cres.reps_split} repeat edges "
         f"split; contig -R {cres.tourbus['waves']} Tour-Bus waves of "
         f"{cres.tourbus['s_per_wave'] * 1e3:.2f} ms ({program['captures']} "
         f"capture, {program['replays']} replays of "
-        f"{program['host_us_replay']:.1f} host us) on {smi}; identity "
-        f"kernel executions {launches[2]}, standalone LCS kernel "
-        f"{launches[1]}")
+        f"{program['host_us_replay']:.1f} host us) on {smi}; identity, chains and "
+        f"claim/apply kernel executions {launches[2:]}, standalone LCS "
+        f"kernel {launches[1]}")
     return launches, numbers, out
 
 
@@ -1321,8 +1548,8 @@ def edge_records(path: str) -> list:
     return sorted("\n".join(r) for r in recs)
 
 
-def phase_mesh(cli, merge_path, lcs, smi: str, tmp: str, all_res, cfg: str,
-               all_out: str, map_out: str):
+def phase_mesh(cli, merge_path, lcs, wave, tourbus, smi: str, tmp: str,
+               all_res, cfg: str, all_out: str, map_out: str):
     """Phase 8: pregraph and map on MESH_SHARDS logical shards of the
     card, against the one-device files of phases 6 and 7."""
     spec = ",".join(["cuda:0"] * MESH_SHARDS)
@@ -1331,7 +1558,7 @@ def phase_mesh(cli, merge_path, lcs, smi: str, tmp: str, all_res, cfg: str,
     t_phase = time.time()
 
     out = os.path.join(tmp, "mesh")
-    merge_path.LAUNCHES = lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
+    reset_counts(merge_path, lcs, wave, tourbus)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -1393,7 +1620,9 @@ def phase_mesh(cli, merge_path, lcs, smi: str, tmp: str, all_res, cfg: str,
                 "phase_s": mres.phase_seconds, "exchanges": mres.exchanges,
                 "exchange_bytes": mres.exchange_bytes},
         "merge_launches": launches, "lcs_launches": lcs.LAUNCHES,
-        "identity_launches": lcs.IDENTITY_LAUNCHES}
+        "identity_launches": lcs.IDENTITY_LAUNCHES,
+        "chains_launches": wave.CHAINS_LAUNCHES,
+        "claim_apply_launches": wave.CLAIM_APPLY_LAUNCHES}
     log(f"[mesh] {numbers['phase_s']:.1f}s: pregraph "
         f"{seconds['pregraph']:.1f}s (" + ", ".join(
             f"{n} {t:.1f}" for n, t in res.phase_seconds.items()) +
@@ -1402,7 +1631,7 @@ def phase_mesh(cli, merge_path, lcs, smi: str, tmp: str, all_res, cfg: str,
         f"{seconds['map']:.1f}s, its three files as on one device, "
         f"{mres.exchanges} exchanges of {mres.exchange_bytes / 1e9:.2f} GB; "
         f"{MESH_SHARDS} logical shards on one card, {smi}")
-    return (launches, lcs.LAUNCHES, lcs.IDENTITY_LAUNCHES), numbers
+    return (launches, lcs.LAUNCHES, *wave_executions(lcs, wave)), numbers
 
 
 def load_test(name: str):
@@ -1416,15 +1645,14 @@ def load_test(name: str):
     return module
 
 
-def phase_e2e(cli, merge_path, lcs, tourbus, smi: str, tmp: str):
+def phase_e2e(cli, merge_path, lcs, wave, tourbus, smi: str, tmp: str):
     """Phase 9: the six fixtures of the JAX end-to-end suite (K = 21; the
     gap-fill one K = 23) through the CLI on the card: the suite's
     recovery checks, and every file equal to the port's CPU run's."""
     from soapdenovo_trans_tpu_torch.graph import unitigs
 
     e2e = load_test("test_torch_e2e.py")
-    merge_path.LAUNCHES = lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
-    tourbus.CAPTURES = tourbus.REPLAYS = 0
+    reset_counts(merge_path, lcs, wave, tourbus)
     t_phase = time.time()
     fixtures = {}
     pinches = []
@@ -1462,20 +1690,18 @@ def phase_e2e(cli, merge_path, lcs, tourbus, smi: str, tmp: str):
         log(f"[e2e] {name}: K={fx.k}, recovered on cuda in "
             f"{sum(seconds['cuda']):.2f}s; {n_files} files equal to the cpu "
             f"run's")
-    waves = sum(pinches)
-    if lcs.IDENTITY_LAUNCHES != waves:
-        raise AssertionError(f"the identity kernel launched "
-                             f"{lcs.IDENTITY_LAUNCHES} times over {waves} "
-                             f"Tour-Bus waves on cuda")
-    check_wave_programs(tourbus, lcs, pinches, "the e2e fixtures on cuda")
-    log(f"[e2e] identity kernel executions {lcs.IDENTITY_LAUNCHES} = "
-        f"Tour-Bus waves ({pinches} a fixture; {tourbus.CAPTURES} captures, "
-        f"{tourbus.REPLAYS} replays); standalone LCS kernel launches "
-        f"{lcs.LAUNCHES}")
+    check_wave_programs(tourbus, lcs, wave, pinches,
+                        "the e2e fixtures on cuda")
+    log(f"[e2e] identity, chains and claim/apply kernel executions "
+        f"{wave_executions(lcs, wave)} = Tour-Bus waves ({pinches} a "
+        f"fixture; {tourbus.CAPTURES} captures, {tourbus.REPLAYS} "
+        f"replays); standalone LCS kernel launches {lcs.LAUNCHES}")
     return {"card": smi, "phase_s": time.time() - t_phase,
             "fixtures": fixtures, "merge_launches": merge_path.LAUNCHES,
             "lcs_launches": lcs.LAUNCHES,
-            "identity_launches": lcs.IDENTITY_LAUNCHES}
+            "identity_launches": lcs.IDENTITY_LAUNCHES,
+            "chains_launches": wave.CHAINS_LAUNCHES,
+            "claim_apply_launches": wave.CLAIM_APPLY_LAUNCHES}
 
 
 def main() -> int:
@@ -1493,7 +1719,7 @@ def main() -> int:
     import perf_e2e
     from soapdenovo_trans_tpu_torch import cli
     from soapdenovo_trans_tpu_torch.graph import tourbus
-    from soapdenovo_trans_tpu_torch.kernels import lcs, merge_path
+    from soapdenovo_trans_tpu_torch.kernels import lcs, merge_path, wave
     from soapdenovo_trans_tpu_torch.stages import pregraph as pg_stage
 
     dev = torch.device("cuda")
@@ -1504,35 +1730,40 @@ def main() -> int:
         clock.append(time.time())
         script_s[name] = clock[-1] - clock[-2]
 
-    build_s = phase_build((merge_path, lcs))
+    build_s = phase_build((merge_path, lcs, wave))
     lap("build")
     lcs_timing = phase_lcs(lcs, dev)
     id_timing = phase_identity(lcs, dev)
+    wave_timing = phase_wave(wave, dev)
     timing = phase_kernel(merge_path, dev)
     lap("kernel")
     card = smi.splitlines()[0]
     with tempfile.TemporaryDirectory() as tmp:
-        parity = phase_cpu_gpu(cli, lcs, tourbus, pg_stage, perf_e2e, tmp)
+        parity = phase_cpu_gpu(cli, merge_path, lcs, wave, tourbus,
+                               pg_stage, perf_e2e, tmp)
         lap("cpu_gpu")
     with tempfile.TemporaryDirectory() as tmp:
         cfg = perf_e2e.synth(tmp, n_tx=CONTIG_TX, n_pairs=CONTIG_PAIRS,
                              seed=0)
         lap("simulate")
-        slice_launches = phase_slice(cli, merge_path, lcs, cfg, tmp)
+        slice_launches = phase_slice(cli, merge_path, lcs, wave, tourbus,
+                                     cfg, tmp)
         lap("pregraph")
-        (launches, id_wave), numbers, res, out = phase_all(
-            cli, merge_path, lcs, tourbus, card, tmp, cfg)
+        (launches, id_wave, wave_real), numbers, res, out = phase_all(
+            cli, merge_path, lcs, wave, tourbus, card, tmp, cfg)
         lap("all")
         flag_launches, flag_numbers, map_out = phase_flags(
-            cli, merge_path, lcs, tourbus, perf_e2e, card, tmp, res, cfg,
-            out)
+            cli, merge_path, lcs, wave, tourbus, perf_e2e, card, tmp, res,
+            cfg, out)
         lap("options")
         mesh_launches, mesh_numbers = phase_mesh(
-            cli, merge_path, lcs, card, tmp, res, cfg, out, map_out)
+            cli, merge_path, lcs, wave, tourbus, card, tmp, res, cfg, out,
+            map_out)
         lap("mesh")
         del res
     with tempfile.TemporaryDirectory() as tmp:
-        e2e_numbers = phase_e2e(cli, merge_path, lcs, tourbus, card, tmp)
+        e2e_numbers = phase_e2e(cli, merge_path, lcs, wave, tourbus, card,
+                                tmp)
         lap("e2e")
     log("[script] seconds of each phase, simulation and checks included: "
         + json.dumps(script_s))
@@ -1547,9 +1778,11 @@ def main() -> int:
     log("[flags] " + json.dumps(flag_numbers))
     log("[mesh] " + json.dumps(mesh_numbers))
     log("[e2e] " + json.dumps(e2e_numbers))
-    by_path = {"pregraph_500k": slice_launches, "all_500k": launches,
-               "options_500k_220k": flag_launches,
+    by_path = {"cpu_gpu_parity": parity, "pregraph_500k": slice_launches,
+               "all_500k": launches, "options_500k_220k": flag_launches,
                "mesh_4_shards_500k": mesh_launches}
+    e2e_launches = [e2e_numbers[f"{k}_launches"] for k in (
+        "merge", "lcs", "identity", "chains", "claim_apply")]
     lcs_wave = lcs_timing["synthetic"]["wave_1024x384"]
     log(json.dumps({"kernels": [{
         "name": "merge_path", "route": "cuda",
@@ -1569,9 +1802,8 @@ def main() -> int:
                          "kernel",
         "launches": launches[2],
         "launches_by_path": {
-            "cpu_gpu_parity": parity[1],
             **{path: n[2] for path, n in by_path.items()},
-            "e2e_fixtures": e2e_numbers["identity_launches"]},
+            "e2e_fixtures": e2e_launches[2]},
         "max_abs_err": max(id_timing["max_abs_err"], id_wave["max_abs_err"]),
         "ms": id_wave["ms"], "plain_ms": id_wave["plain_ms"],
         "bound_ms": id_wave["bound_ms"], "bound_by": id_wave["bound_by"],
@@ -1587,14 +1819,44 @@ def main() -> int:
         "on_main_path": False,
         "launches": launches[1],
         "launches_by_path": {
-            "cpu_gpu_parity": parity[0],
             **{path: n[1] for path, n in by_path.items()},
-            "e2e_fixtures": e2e_numbers["lcs_launches"]},
+            "e2e_fixtures": e2e_launches[1]},
         "max_abs_err": lcs_timing["max_abs_err"],
         "ms": lcs_wave["ms"], "plain_ms": lcs_wave["plain_ms"],
         "bound_ms": lcs_wave["bound_ms"], "bound_by": lcs_wave["bound_by"],
         "library_ms": None, "build_s": build_s["lcs.cu"],
-        "synthetic": lcs_timing["synthetic"]}]}))
+        "synthetic": lcs_timing["synthetic"]}, *({
+        "name": name, "route": "cuda",
+        "source": "soapdenovo_trans_tpu_torch/csrc/wave.cu",
+        "entry": entry, "replaces": replaces, "replaces_what": what,
+        "kernels_an_execution": parts,
+        "launches": launches[i],
+        "launches_by_path": {
+            **{path: n[i] for path, n in by_path.items()},
+            "e2e_fixtures": e2e_launches[i]},
+        "max_abs_err": max(wave_timing["max_abs_err"],
+                           wave_real["max_abs_err"]),
+        **{key: wave_real[name][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "host_us")},
+        "library_ms": None, "build_s": build_s["wave.cu"],
+        "wave_inputs": wave_real,
+        "synthetic": {case: {**t[name], **{k: t[k] for k in (
+            "c", "m", "e", "a", "ok_rows")}}
+            for case, t in wave_timing["synthetic"].items()}}
+        for name, entry, replaces, what, parts, i in (
+            ("chains", "chains_launch",
+             "soapdenovo_trans_tpu/graph/tourbus.py:174",
+             "steps 3-4 of the jitted _wave up to the identity check "
+             "(:174-219): the backward walks, the first meeting point, the "
+             "path interiors, their twins and the clash test; XLA device "
+             "code, not a Pallas kernel", "a memset and chains_kernel", 3),
+            ("claim_apply", "claim_apply_launch",
+             "soapdenovo_trans_tpu/graph/tourbus.py:232",
+             "steps 5-6 of the jitted _wave (:232-325): the claim "
+             "arbitration, the positional cover, the deletes, the coverage "
+             "adds, the remap and the arc rows' rewrite; XLA device code, "
+             "not a Pallas kernel", "claim_kernel, apply_kernel and "
+             "arcs_kernel", 4)))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,13 +15,17 @@ One wave, over flat arrays:
    heaviest-coverage predecessor (one sort over the arc table);
 2. every non-forest arc (u -> t) is a bubble candidate: walking
    <= MAXNODELENGTH steps up the forest from t and from u and
-   intersecting the two chains gives the fork s and the two paths;
+   intersecting the two chains gives the fork s and the two paths
+   (``wave.chains``);
 3. the two paths' sequences are scored by LCS: accept iff LCS >= 90%
    of the longer and |lenA - lenB| <= DIFF (``lcs.identity_check``);
 4. accepted candidates claim their edges (scatter-min arbitration);
    claim-disjoint winners apply together: minority edges (and twins)
    deleted, their coverage added onto the covering majority edges,
-   their arcs remapped onto the majority path.
+   their arcs remapped onto the majority path (``wave.claim_apply``).
+
+On a card each of the three named steps is a hand kernel; the forest
+and the candidate order are sorts.
 
 Waves repeat to a fixpoint like the reference's HasChanged loop
 (:2123).  Inside a wave the host reads nothing; ``pinch`` reads the
@@ -42,7 +46,7 @@ from typing import Tuple
 
 import torch
 
-from ..kernels import lcs
+from ..kernels import lcs, wave
 from . import arcs as arcs_mod
 from . import unitigs
 from .edge_clean import _gather_or, _scatter_true, rebuild_arcs
@@ -53,6 +57,10 @@ _BIG = 2**30
 
 CAPTURES = 0  # CUDA graphs captured since the last reset (one a pinch)
 REPLAYS = 0   # waves run as replays of a captured graph since the reset
+# (module, executions counter, capture counter) of each kernel of a wave
+_KERNELS = ((lcs, "IDENTITY_LAUNCHES", "IDENTITY_CAPTURED"),
+            (wave, "CHAINS_LAUNCHES", "CHAINS_CAPTURED"),
+            (wave, "CLAIM_APPLY_LAUNCHES", "CLAIM_APPLY_CAPTURED"))
 
 
 def _params_for(merge_level: int) -> Tuple[int, int]:
@@ -71,36 +79,6 @@ def _lcs_scores(a, b, la, lb, cap: int):
     of the LCS kernel on the card (``kernels/lcs.py``).  The wave does
     not call it: ``lcs.identity_check`` is its whole identity check."""
     return lcs.lcs_scores(a, b, la, lb, cap)
-
-
-def _take(x, idx):
-    """take_along_axis over dim 1 with idx clamped into range."""
-    return torch.gather(x, 1, idx.clamp(0, x.shape[1] - 1))
-
-
-def _path_nodes(chain, s_idx, m_max: int, skip_last: int):
-    """Interior nodes of a backward chain, re-ordered fork->join.
-
-    chain[c, 0] is the join-side node, chain[c, s_idx[c]] the fork.
-    Returns (C, m_max) node ids in PATH order (first-after-fork
-    first), -1 padded.  skip_last=1 drops chain[0] (the majority
-    chain starts at t, which is not part of the differing segment).
-    """
-    r = torch.arange(m_max, device=chain.device)[None, :]
-    idx = s_idx[:, None] - 1 - r
-    return torch.where(idx >= skip_last, _take(chain, idx), -1)
-
-
-def _gather2(x, nodes, fill):
-    return _gather_or(x, nodes.reshape(-1), fill).reshape(nodes.shape)
-
-
-def _walk(prev, start, steps: int):
-    """(C, steps): [start, prev(start), prev(prev(start)), ...]."""
-    hist = [start]
-    for _ in range(steps - 1):
-        hist.append(_gather_or(prev, hist[-1], -1))
-    return torch.stack(hist, 1)
 
 
 def _majority_forest(aset, varc, cvg_f, e_cap: int):
@@ -149,42 +127,11 @@ def _wave(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet, failed,
     u = torch.where(cmask, aset.from_ed[cid_arc], -1)
     t0 = torch.where(cmask, aset.to_ed[cid_arc], -1)
 
-    # 3. backward chains up the forest, and their first meeting point
-    chain_a = _walk(prev, t0, m_max + 2)   # t, a1, ..  (fork at index >= 1)
-    chain_b = _walk(prev, u, m_max + 1)    # u, b1, ..
-    la_n, lb_n = chain_a.shape[1], chain_b.shape[1]
-    eq = (chain_a[:, :, None] == chain_b[:, None, :]) \
-        & (chain_a[:, :, None] >= 0) & (chain_b[:, None, :] >= 0)
-    ii = torch.arange(la_n, device=dev)[None, :, None]
-    jj = torch.arange(lb_n, device=dev)[None, None, :]
-    flat = torch.where(eq & (ii >= 1), ii + jj, _BIG).reshape(
-        eq.shape[0], -1)
-    best = flat.argmin(1)   # first minimum, as jnp.argmin
-    found = torch.gather(flat, 1, best[:, None])[:, 0] < _BIG
-    i_s = best // lb_n
-    j_s = best % lb_n
-    found &= cmask & ((i_s - 1) <= m_max) & (j_s <= m_max)
-    n_backtracked = found.sum()
-    s_node = torch.where(found, _take(chain_a, i_s[:, None])[:, 0], -1)
-
-    # 4. path interiors (fork->join order) + sequences + identity
-    maj = torch.where(found[:, None],
-                      _path_nodes(chain_a, i_s, m_max, skip_last=1), -1)
-    mnr = torch.where(found[:, None],
-                      _path_nodes(chain_b, j_s, m_max, skip_last=0), -1)
-    # reject degenerate/self-touching candidates: the two paths (and
-    # their twins) must be disjoint, and neither may touch s/t
-    tw_maj = _gather2(eg.twin, maj, -1)
-    tw_mnr = _gather2(eg.twin, mnr, -1)
-    ends = torch.stack([s_node, t0, _gather_or(eg.twin, s_node, -1),
-                        _gather_or(eg.twin, t0, -1)], 1)
-    maj_side = torch.cat([maj, tw_maj, ends], 1)
-    mnr_side = torch.cat([mnr, tw_mnr], 1)
-    clash = ((mnr_side[:, :, None] == maj_side[:, None, :])
-             & (mnr_side[:, :, None] >= 0)).flatten(1).any(1)
-    # palindromes inside the minority path
-    clash |= ((mnr == tw_mnr) & (mnr >= 0)).any(1)
-    found &= ~clash & (mnr >= 0).any(1) & (maj >= 0).any(1)
+    # 3-4. backward chains up the forest, their first meeting point, the
+    # path interiors (fork->join order), their twins and the clash test:
+    # one launch of the chains kernel on the card
+    maj, mnr, tw_maj, tw_mnr, _s, ends, found, n_backtracked = \
+        wave.chains(prev, u, t0, cmask, eg.twin, m_max)
 
     # path lengths, the length gate, the LCS of the two path sequences
     # and the 90% verdict: one launch of the identity kernel on the card
@@ -192,78 +139,13 @@ def _wave(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet, failed,
         maj, mnr, found, eg.length, eg.seq_off, eg.seq_pool, diff, seq_cap)
     n_compared = compared.sum()
 
-    # 5. claim arbitration: winners are edge-disjoint within the wave;
-    # the lowest (minority coverage, candidate index) claim wins
-    c = maj.shape[0]
-    claims = torch.cat([maj, tw_maj, mnr, tw_mnr, ends], 1)
-    claims = torch.where(ok[:, None] & (claims >= 0), claims, e_cap)
-    rank = torch.where(
-        ok, (_gather2(eg.cvg, mnr, 0) * (mnr >= 0)).sum(1), _BIG)
-    q = claims.shape[1]
-    flat_e = claims.reshape(-1)
-    flat_rank = rank[:, None].expand(c, q).reshape(-1)
-    flat_cid = torch.arange(c, device=dev)[:, None].expand(c, q).reshape(-1)
-    big = torch.full((e_cap + 1,), _BIG, dtype=torch.int64, device=dev)
-    win_rank = big.scatter_reduce(0, flat_e, flat_rank, "amin",
-                                  include_self=True)
-    tied = flat_rank == win_rank[flat_e]
-    win_cid = big.scatter_reduce(0, flat_e, torch.where(
-        tied, flat_cid, _BIG), "amin", include_self=True)
-    mine = (win_cid[flat_e] == flat_cid) | (flat_e == e_cap)
-    win = ok & mine.reshape(c, q).all(1)
-    n_merged = win.sum()
-
-    # 6. apply: delete minority (+twins), fold coverage positionally,
-    # remap minority arcs onto the covering majority node
-    mnr_w = torch.where(win[:, None], mnr, -1)
-    tw_mnr_w = torch.where(win[:, None], tw_mnr, -1)
-    del_idx = torch.cat([mnr_w, tw_mnr_w], 1).reshape(-1)
-    deleted2 = eg.deleted | _scatter_true(
-        e_cap, torch.where(del_idx >= 0, del_idx, e_cap))
-
-    # positional covering: minority node midpoint, scaled to the
-    # majority path, picks the covering majority node
-    lens_b = _gather2(eg.length, mnr, 0)
-    mid_b = torch.cumsum(lens_b, 1) - lens_b + lens_b // 2
-    scale = torch.where(len_b[:, None] > 0, mid_b * len_a[:, None]
-                        // len_b.clamp(min=1)[:, None], 0)
-    lens_a = _gather2(eg.length, maj, 0)
-    cum_a = torch.cumsum(lens_a, 1) - lens_a
-    inside = (scale[:, :, None] >= cum_a[:, None, :]) & \
-        (scale[:, :, None] < (cum_a + lens_a)[:, None, :]) & \
-        (maj[:, None, :] >= 0)
-    last_maj = _take(maj, ((maj >= 0).sum(1) - 1).clamp(min=0)[:, None])
-    cover = torch.where(inside.any(2),
-                        torch.gather(maj, 1,
-                                     inside.to(torch.uint8).argmax(2)),
-                        last_maj)  # fallback: last live majority node
-    cover = torch.where(mnr_w >= 0, cover, -1)
-    tw_cover = _gather2(eg.twin, cover, -1)
-
-    add_idx = torch.cat([cover, tw_cover], 1).reshape(-1)
-    add_val = torch.cat([_gather2(eg.cvg, mnr_w, 0),
-                         _gather2(eg.cvg, tw_mnr_w, 0)], 1).reshape(-1)
-    cvg2 = torch.cat([eg.cvg, eg.cvg.new_zeros(1)]).index_add_(
-        0, torch.where(add_idx >= 0, add_idx, e_cap),
-        torch.where(add_idx >= 0, add_val, 0))[:e_cap].clamp(
-            0, unitigs.MAX_EDGE_COV)
-
-    remap = torch.cat([me, me.new_zeros(1)])
-    for idx, to in ((mnr_w, cover), (tw_mnr_w, tw_cover)):
-        idx, to = idx.reshape(-1), to.reshape(-1)
-        remap[torch.where(idx >= 0, idx, e_cap)] = to.clamp(min=0)
-    remap = remap[:e_cap]
-
-    new_f = torch.where(aset.from_ed >= 0,
-                        _gather_or(remap, aset.from_ed, -1), -1)
-    new_t = torch.where(aset.to_ed >= 0,
-                        _gather_or(remap, aset.to_ed, -1), -1)
-    # drop self-loops created by two minority nodes covering one
-    # majority node (genuine pre-existing loops are preserved)
-    created_loop = (new_f == new_t) & (aset.from_ed != aset.to_ed)
-    new_f = torch.where(created_loop, -1, new_f)
-    new_t = torch.where(created_loop, -1, new_t)
-    new_mult = torch.where(new_f >= 0, aset.mult, 0)
+    # 5-6. claim arbitration (edge-disjoint winners, the lowest (minority
+    # coverage, candidate index) claim wins) and apply (minority nodes and
+    # twins deleted, coverage folded positionally, arcs remapped onto the
+    # covering majority node): the claim/apply kernel on the card
+    cvg2, deleted2, new_f, new_t, new_mult, n_merged = wave.claim_apply(
+        maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, eg.cvg, eg.length,
+        eg.twin, eg.deleted, aset.from_ed, aset.to_ed, aset.mult)
 
     overflow = (n_cand - cand_cap).clamp(min=0)
     # examined candidates rejected by the checks themselves (not by
@@ -325,7 +207,8 @@ class WaveProgram:
 
     On a card the first wave runs eagerly, with any host synchronisation
     an error: a real wave, and the warm-up (the kernel build, the sorts'
-    workspaces, the identity kernel's shared-memory attribute).  The
+    workspaces, the identity kernel's shared-memory attribute; the
+    claim/apply kernel's scratch is reserved at construction).  The
     second is captured once into a ``torch.cuda.CUDAGraph`` and every
     later wave replays it (captured work does not run at capture, so the
     captured wave is a replay too); a capture or replay that fails
@@ -344,7 +227,10 @@ class WaveProgram:
         self.waves = 0
         self.graph = None
         self.outs = None
-        self.identity_launches = 0  # identity launches a replay executes
+        # the kernels' launches a replay executes, as _KERNELS lists them
+        self.replayed = [0] * len(_KERNELS)
+        if self.dev.type == "cuda":  # before any capture; kept with the graph
+            self.scratch = wave.claim_scratch(self.dev, eg.cvg.shape[0])
 
     def _step(self):
         return _wave_step(self.eg, self.aset, self.failed, *self.args)
@@ -363,17 +249,20 @@ class WaveProgram:
                     self._capture()
                 self.graph.replay()
             REPLAYS += 1
-            lcs.IDENTITY_LAUNCHES += self.identity_launches
+            for (module, executions, _), n in zip(_KERNELS, self.replayed):
+                setattr(module, executions, getattr(module, executions) + n)
         self.waves += 1
         return self.outs[0]
 
     def _capture(self) -> None:
         global CAPTURES
         graph = torch.cuda.CUDAGraph()
-        captured = lcs.IDENTITY_CAPTURED
+        before = [getattr(module, captured) for module, _, captured
+                  in _KERNELS]
         with torch.cuda.graph(graph, stream=torch.cuda.Stream(self.dev)):
             self.outs = self._step()
-        self.identity_launches = lcs.IDENTITY_CAPTURED - captured
+        self.replayed = [getattr(module, captured) - n for
+                         (module, _, captured), n in zip(_KERNELS, before)]
         self.graph = graph
         CAPTURES += 1
 

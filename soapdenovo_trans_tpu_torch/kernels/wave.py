@@ -1,0 +1,371 @@
+"""The Hopper kernels of the Tour-Bus wave's candidate body: the chain
+walk before the identity check (``chains``) and the claim arbitration and
+apply after it (``claim_apply``).
+
+``chains`` replaces steps 3-4 of the JAX package's jitted ``_wave`` up to
+the identity check (``soapdenovo_trans_tpu/graph/tourbus.py:174-219``: the
+backward walks, the first meeting point, the path interiors, their twins
+and the clash test); ``claim_apply`` replaces steps 5-6 (:232-325: the
+claim arbitration, the positional cover, the deletes, the coverage adds,
+the remap and the rewrite of the arc rows).  XLA fuses both into the wave
+program (device code, not Pallas kernels); the port ran them as some 320
+small launches a wave.  The CUDA source of both is ``csrc/wave.cu`` in
+this package, compiled for ``sm_90a`` with ``nvcc`` at first use into
+``_build/`` and loaded with ``ctypes`` (``kernels/_nvcc.py``).
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+PyTorch version (``chains_plain``, ``claim_apply_plain``: the wave's own
+code, moved here) only for CPU tensors.  Both may be captured into a CUDA
+graph (the Tour-Bus wave is, ``graph/tourbus.WaveProgram``): their
+launches read nothing back, copy no host value to the card and set no
+attribute, and their counters count executions.  ``claim_apply`` keeps its
+arbitration keys in a scratch array of each card (``claim_scratch``),
+allocated outside any capture and empty between calls.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+from ..graph import unitigs
+from ..graph.edge_clean import _scatter_true
+from . import _nvcc
+from .lcs import _gather2, _gather_or
+
+SOURCE = os.path.join(_nvcc.CSRC, "wave.cu")
+MAX_M = 30  # node slots a path: -M 3's MAXNODELENGTH (its shared memory)
+EMPTY = 2**63 - 1  # an unclaimed entry of the claim scratch
+_BIG = 2**30
+
+# executions of each kernel since the last reset: each launch outside a
+# CUDA graph capture, and each replay of a graph that holds one (the
+# graph's owner adds them, ``graph/tourbus.WaveProgram``); a
+# ``claim_apply`` execution is its three kernels
+CHAINS_LAUNCHES = 0
+CHAINS_CAPTURED = 0  # chains launches recorded into CUDA graphs
+CLAIM_APPLY_LAUNCHES = 0
+CLAIM_APPLY_CAPTURED = 0  # claim_apply launches recorded into CUDA graphs
+_LIB = None
+_SCRATCH = {}  # card index -> its claim scratch
+
+
+def build() -> str:
+    """Compile csrc/wave.cu for sm_90a (once per source content) and
+    return the shared library's path."""
+    return _nvcc.build(SOURCE)
+
+
+def _load():
+    global _LIB
+    if _LIB is None:
+        lib = _nvcc.load(SOURCE)
+        lib.chains_launch.restype = ctypes.c_int
+        lib.chains_launch.argtypes = ([ctypes.c_void_p] * 13
+                                      + [ctypes.c_longlong] * 3
+                                      + [ctypes.c_void_p])
+        lib.claim_apply_launch.restype = ctypes.c_int
+        lib.claim_apply_launch.argtypes = ([ctypes.c_void_p] * 23
+                                           + [ctypes.c_longlong] * 4
+                                           + [ctypes.c_void_p])
+        lib.wave_max_m.restype = lib.wave_empty.restype = ctypes.c_longlong
+        if lib.wave_max_m() != MAX_M or lib.wave_empty() != EMPTY:
+            raise RuntimeError("csrc/wave.cu and kernels/wave.py disagree "
+                               "on the node slots or the empty entry")
+        _LIB = lib
+    return _LIB
+
+
+def claim_scratch(dev, e: int):
+    """The claim scratch of card ``dev``: at least e int64 entries, every
+    one EMPTY between calls (each ``claim_apply`` resets what it claimed).
+    Allocated at first need and replaced by a larger one when a graph
+    outgrows it, never inside a CUDA graph capture (``WaveProgram``
+    reserves it before its first wave and keeps a reference, so a graph
+    it captured keeps its scratch).  The calls on one card share it, so
+    they must not overlap: the wave runs them on one stream."""
+    dev = torch.device(dev)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    have = _SCRATCH.get(dev.index)
+    if have is not None and have.shape[0] >= e:
+        return have
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"claim scratch of {e} entries first asked for "
+                           f"inside a CUDA graph capture on {dev}")
+    scratch = torch.full((max(e, 1),), EMPTY, dtype=torch.int64,
+                         device=dev)
+    _SCRATCH[dev.index] = scratch
+    return scratch
+
+
+def _check(xs, int64, flags, rows, m_max: int) -> None:
+    if len({x.device for x in xs}) != 1:
+        raise ValueError("wave inputs must lie on one device")
+    if not all(x.dtype == torch.int64 for x in int64):
+        raise TypeError("node ids, lengths, coverage and arc rows must be "
+                        "int64")
+    if not all(x.dtype == torch.bool for x in flags):
+        raise TypeError("masks must be bool")
+    if not 0 <= m_max <= MAX_M:
+        raise ValueError(f"m_max {m_max} outside the kernel's 0..{MAX_M}")
+    if not all(x.is_contiguous() for x in xs):
+        raise ValueError("wave inputs must be contiguous")
+    for what, x, shape in rows:
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{what} must be {shape}, got "
+                             f"{tuple(x.shape)}")
+
+
+def chains(prev, u, t0, cmask, twin, m_max: int):
+    """Steps 3-4 of the Tour-Bus wave up to the identity check, for C
+    candidate arcs u -> t0 over the majority forest ``prev``: returns
+    (maj, mnr, tw_maj, tw_mnr, s_node, ends, found, n_backtracked).
+
+    prev, twin: (E,) int64; u, t0: (C,) int64 (-1 where not a
+    candidate); cmask: (C,) bool; m_max <= MAX_M.  maj, mnr and their
+    twins are (C, m_max) int64 node lists in path order (fork to join),
+    -1 padded; s_node (C,) the fork, ends (C, 4) (s, t0, twin(s),
+    twin(t0)); found (C,) bool, the candidates with a meeting point that
+    pass the clash test; n_backtracked a 0-dim int64, the candidates with
+    a meeting point.  ``csrc/wave.cu`` states the rules."""
+    global CHAINS_LAUNCHES, CHAINS_CAPTURED
+    c, e = u.shape[0] if u.dim() == 1 else -1, prev.shape[0]
+    _check((prev, u, t0, cmask, twin), (prev, u, t0, twin), (cmask,),
+           (("prev", prev, (e,)), ("u", u, (c,)), ("t0", t0, (c,)),
+            ("cmask", cmask, (c,)), ("twin", twin, (e,))), m_max)
+    dev = u.device
+    if dev.type == "cpu":
+        return chains_plain(prev, u, t0, cmask, twin, m_max)
+    if dev.type != "cuda":
+        raise ValueError(f"no wave kernel for device {dev}")
+    lib = _load()
+    with torch.cuda.device(dev):
+        longs = torch.empty((4, c, m_max), dtype=torch.int64, device=dev)
+        s_node = torch.empty(c, dtype=torch.int64, device=dev)
+        ends = torch.empty((c, 4), dtype=torch.int64, device=dev)
+        found = torch.empty(c, dtype=torch.bool, device=dev)
+        n_back = torch.empty((), dtype=torch.int64, device=dev)
+        err = lib.chains_launch(
+            prev.data_ptr(), u.data_ptr(), t0.data_ptr(), cmask.data_ptr(),
+            twin.data_ptr(), *(x.data_ptr() for x in longs),
+            s_node.data_ptr(), ends.data_ptr(), found.data_ptr(),
+            n_back.data_ptr(), c, e, m_max,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"chains kernel launch failed: CUDA error "
+                               f"{err}")
+        if torch.cuda.is_current_stream_capturing():
+            CHAINS_CAPTURED += 1
+        else:
+            CHAINS_LAUNCHES += 1
+    return (*longs, s_node, ends, found, n_back)
+
+
+def _take(x, idx):
+    """take_along_axis over dim 1 with idx clamped into range."""
+    return torch.gather(x, 1, idx.clamp(0, x.shape[1] - 1))
+
+
+def _path_nodes(chain, s_idx, m_max: int, skip_last: int):
+    """Interior nodes of a backward chain, re-ordered fork->join.
+
+    chain[c, 0] is the join-side node, chain[c, s_idx[c]] the fork.
+    Returns (C, m_max) node ids in PATH order (first-after-fork
+    first), -1 padded.  skip_last=1 drops chain[0] (the majority
+    chain starts at t, which is not part of the differing segment).
+    """
+    r = torch.arange(m_max, device=chain.device)[None, :]
+    idx = s_idx[:, None] - 1 - r
+    return torch.where(idx >= skip_last, _take(chain, idx), -1)
+
+
+def _walk(prev, start, steps: int):
+    """(C, steps): [start, prev(start), prev(prev(start)), ...]."""
+    hist = [start]
+    for _ in range(steps - 1):
+        hist.append(_gather_or(prev, hist[-1], -1))
+    return torch.stack(hist, 1)
+
+
+def chains_plain(prev, u, t0, cmask, twin, m_max: int):
+    """``chains`` in plain PyTorch, as the JAX wave computes it."""
+    dev = u.device
+    # 3. backward chains up the forest, and their first meeting point
+    chain_a = _walk(prev, t0, m_max + 2)   # t, a1, ..  (fork at index >= 1)
+    chain_b = _walk(prev, u, m_max + 1)    # u, b1, ..
+    la_n, lb_n = chain_a.shape[1], chain_b.shape[1]
+    eq = (chain_a[:, :, None] == chain_b[:, None, :]) \
+        & (chain_a[:, :, None] >= 0) & (chain_b[:, None, :] >= 0)
+    ii = torch.arange(la_n, device=dev)[None, :, None]
+    jj = torch.arange(lb_n, device=dev)[None, None, :]
+    flat = torch.where(eq & (ii >= 1), ii + jj, _BIG).reshape(
+        eq.shape[0], -1)
+    best = flat.argmin(1)   # first minimum, as jnp.argmin
+    found = torch.gather(flat, 1, best[:, None])[:, 0] < _BIG
+    i_s = best // lb_n
+    j_s = best % lb_n
+    found &= cmask & ((i_s - 1) <= m_max) & (j_s <= m_max)
+    n_backtracked = found.sum()
+    s_node = torch.where(found, _take(chain_a, i_s[:, None])[:, 0], -1)
+
+    # 4. path interiors (fork->join order)
+    maj = torch.where(found[:, None],
+                      _path_nodes(chain_a, i_s, m_max, skip_last=1), -1)
+    mnr = torch.where(found[:, None],
+                      _path_nodes(chain_b, j_s, m_max, skip_last=0), -1)
+    # reject degenerate/self-touching candidates: the two paths (and
+    # their twins) must be disjoint, and neither may touch s/t
+    tw_maj = _gather2(twin, maj, -1)
+    tw_mnr = _gather2(twin, mnr, -1)
+    ends = torch.stack([s_node, t0, _gather_or(twin, s_node, -1),
+                        _gather_or(twin, t0, -1)], 1)
+    maj_side = torch.cat([maj, tw_maj, ends], 1)
+    mnr_side = torch.cat([mnr, tw_mnr], 1)
+    clash = ((mnr_side[:, :, None] == maj_side[:, None, :])
+             & (mnr_side[:, :, None] >= 0)).flatten(1).any(1)
+    # palindromes inside the minority path
+    clash |= ((mnr == tw_mnr) & (mnr >= 0)).any(1)
+    found &= ~clash & (mnr >= 0).any(1) & (maj >= 0).any(1)
+    return maj, mnr, tw_maj, tw_mnr, s_node, ends, found, n_backtracked
+
+
+def claim_apply(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg,
+                length, twin, deleted, from_ed, to_ed, mult):
+    """Steps 5-6 of the Tour-Bus wave: returns (cvg2, deleted2, new_f,
+    new_t, new_mult, n_merged).
+
+    maj, mnr, tw_maj, tw_mnr: (C, m) int64 and ends (C, 4) int64, as
+    ``chains`` gives them; ok, len_a, len_b: (C,) as the identity check
+    gives them; cvg, length, twin: (E,) int64 and deleted (E,) bool, an
+    ``EdgeGraph``'s; from_ed, to_ed, mult: (A,) int64 arc rows.  The ok
+    candidates that hold the least (minority coverage, candidate) of every
+    edge they claim win (the claims of -1 are no claims); each deletes its
+    minority nodes and their twins, moves their coverage onto the covering
+    majority node and its twin, and remaps their arcs onto it; every arc
+    row is remapped and the self-loops this makes dropped; cvg2 is
+    clamped into [0, MAX_EDGE_COV]; n_merged (0-dim int64) counts the
+    winners.  The kernel's arbitration key needs each rank (a sum of at
+    most m coverages) below 2^31, which an EdgeGraph's coverage, clamped
+    to MAX_EDGE_COV by every wave, keeps."""
+    global CLAIM_APPLY_LAUNCHES, CLAIM_APPLY_CAPTURED
+    c, m = maj.shape if maj.dim() == 2 else (-1, -1)
+    e, a = cvg.shape[0], from_ed.shape[0]
+    xs = (maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg, length,
+          twin, deleted, from_ed, to_ed, mult)
+    _check(xs, xs[:5] + xs[6:11] + xs[12:], (ok, deleted),
+           (("maj", maj, (c, m)), ("mnr", mnr, (c, m)),
+            ("tw_maj", tw_maj, (c, m)), ("tw_mnr", tw_mnr, (c, m)),
+            ("ends", ends, (c, 4)), ("ok", ok, (c,)),
+            ("len_a", len_a, (c,)), ("len_b", len_b, (c,)),
+            ("cvg", cvg, (e,)), ("length", length, (e,)),
+            ("twin", twin, (e,)), ("deleted", deleted, (e,)),
+            ("from_ed", from_ed, (a,)), ("to_ed", to_ed, (a,)),
+            ("mult", mult, (a,))), m)
+    dev = maj.device
+    if dev.type == "cpu":
+        return claim_apply_plain(*xs)
+    if dev.type != "cuda":
+        raise ValueError(f"no wave kernel for device {dev}")
+    lib = _load()
+    with torch.cuda.device(dev):
+        scratch = claim_scratch(dev, e)
+        remap = torch.empty(e, dtype=torch.int64, device=dev)
+        cvg2 = torch.empty(e, dtype=torch.int64, device=dev)
+        deleted2 = torch.empty(e, dtype=torch.bool, device=dev)
+        arcs = torch.empty((3, a), dtype=torch.int64, device=dev)
+        n_merged = torch.empty((), dtype=torch.int64, device=dev)
+        err = lib.claim_apply_launch(
+            *(x.data_ptr() for x in xs), scratch.data_ptr(),
+            remap.data_ptr(), cvg2.data_ptr(), deleted2.data_ptr(),
+            *(x.data_ptr() for x in arcs), n_merged.data_ptr(), c, m, e, a,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"claim/apply kernel launch failed: CUDA "
+                               f"error {err}")
+        if torch.cuda.is_current_stream_capturing():
+            CLAIM_APPLY_CAPTURED += 1
+        else:
+            CLAIM_APPLY_LAUNCHES += 1
+    return (cvg2, deleted2, *arcs, n_merged)
+
+
+def claim_apply_plain(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b,
+                      cvg, length, twin, deleted, from_ed, to_ed, mult):
+    """``claim_apply`` in plain PyTorch, as the JAX wave computes it."""
+    e_cap = cvg.shape[0]
+    dev = cvg.device
+    me = torch.arange(e_cap, device=dev)
+    # 5. claim arbitration: winners are edge-disjoint within the wave;
+    # the lowest (minority coverage, candidate index) claim wins
+    c = maj.shape[0]
+    claims = torch.cat([maj, tw_maj, mnr, tw_mnr, ends], 1)
+    claims = torch.where(ok[:, None] & (claims >= 0), claims, e_cap)
+    rank = torch.where(
+        ok, (_gather2(cvg, mnr, 0) * (mnr >= 0)).sum(1), _BIG)
+    q = claims.shape[1]
+    flat_e = claims.reshape(-1)
+    flat_rank = rank[:, None].expand(c, q).reshape(-1)
+    flat_cid = torch.arange(c, device=dev)[:, None].expand(c, q).reshape(-1)
+    big = torch.full((e_cap + 1,), _BIG, dtype=torch.int64, device=dev)
+    win_rank = big.scatter_reduce(0, flat_e, flat_rank, "amin",
+                                  include_self=True)
+    tied = flat_rank == win_rank[flat_e]
+    win_cid = big.scatter_reduce(0, flat_e, torch.where(
+        tied, flat_cid, _BIG), "amin", include_self=True)
+    mine = (win_cid[flat_e] == flat_cid) | (flat_e == e_cap)
+    win = ok & mine.reshape(c, q).all(1)
+    n_merged = win.sum()
+
+    # 6. apply: delete minority (+twins), fold coverage positionally,
+    # remap minority arcs onto the covering majority node
+    mnr_w = torch.where(win[:, None], mnr, -1)
+    tw_mnr_w = torch.where(win[:, None], tw_mnr, -1)
+    del_idx = torch.cat([mnr_w, tw_mnr_w], 1).reshape(-1)
+    deleted2 = deleted | _scatter_true(
+        e_cap, torch.where(del_idx >= 0, del_idx, e_cap))
+
+    # positional covering: minority node midpoint, scaled to the
+    # majority path, picks the covering majority node
+    lens_b = _gather2(length, mnr, 0)
+    mid_b = torch.cumsum(lens_b, 1) - lens_b + lens_b // 2
+    scale = torch.where(len_b[:, None] > 0, mid_b * len_a[:, None]
+                        // len_b.clamp(min=1)[:, None], 0)
+    lens_a = _gather2(length, maj, 0)
+    cum_a = torch.cumsum(lens_a, 1) - lens_a
+    inside = (scale[:, :, None] >= cum_a[:, None, :]) & \
+        (scale[:, :, None] < (cum_a + lens_a)[:, None, :]) & \
+        (maj[:, None, :] >= 0)
+    last_maj = _take(maj, ((maj >= 0).sum(1) - 1).clamp(min=0)[:, None])
+    cover = torch.where(inside.any(2),
+                        torch.gather(maj, 1,
+                                     inside.to(torch.uint8).argmax(2)),
+                        last_maj)  # fallback: last live majority node
+    cover = torch.where(mnr_w >= 0, cover, -1)
+    tw_cover = _gather2(twin, cover, -1)
+
+    add_idx = torch.cat([cover, tw_cover], 1).reshape(-1)
+    add_val = torch.cat([_gather2(cvg, mnr_w, 0),
+                         _gather2(cvg, tw_mnr_w, 0)], 1).reshape(-1)
+    cvg2 = torch.cat([cvg, cvg.new_zeros(1)]).index_add_(
+        0, torch.where(add_idx >= 0, add_idx, e_cap),
+        torch.where(add_idx >= 0, add_val, 0))[:e_cap].clamp(
+            0, unitigs.MAX_EDGE_COV)
+
+    remap = torch.cat([me, me.new_zeros(1)])
+    for idx, to in ((mnr_w, cover), (tw_mnr_w, tw_cover)):
+        idx, to = idx.reshape(-1), to.reshape(-1)
+        remap[torch.where(idx >= 0, idx, e_cap)] = to.clamp(min=0)
+    remap = remap[:e_cap]
+
+    new_f = torch.where(from_ed >= 0, _gather_or(remap, from_ed, -1), -1)
+    new_t = torch.where(to_ed >= 0, _gather_or(remap, to_ed, -1), -1)
+    # drop self-loops created by two minority nodes covering one
+    # majority node (genuine pre-existing loops are preserved)
+    created_loop = (new_f == new_t) & (from_ed != to_ed)
+    new_f = torch.where(created_loop, -1, new_f)
+    new_t = torch.where(created_loop, -1, new_t)
+    new_mult = torch.where(new_f >= 0, mult, 0)
+    return cvg2, deleted2, new_f, new_t, new_mult, n_merged

@@ -1,0 +1,277 @@
+"""The Tour-Bus wave's candidate body (``kernels/wave.py``: ``chains``
+before the identity check, ``claim_apply`` after it), on the CPU.
+
+Held here: the port's ``_wave``, which goes through both wrappers (their
+plain versions on the CPU), equals the JAX ``_wave`` on every wave of a
+pinch at -M 1, 2 and 3, with 8 and 1,024 candidates a wave, on two
+fixtures, all 11 outputs; and ``chains_plain`` and ``claim_apply_plain``
+equal a numpy loop written here that takes one candidate at a time, on
+the named cases of tests/test_torch_wave_kernels_gpu.py (ties at the
+meeting point, clash, palindrome, not found, equal rank, a shared edge,
+the cover fallback, a created self-loop beside a genuine one, coverage at
+the 16,000 cap, padded rows).  Exact comparison (tolerance 0)."""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from soapdenovo_trans_tpu.graph import arcs as jarcs
+from soapdenovo_trans_tpu.graph import tourbus as jtour
+from soapdenovo_trans_tpu.graph import unitigs as junitigs
+from soapdenovo_trans_tpu_torch import convert
+from soapdenovo_trans_tpu_torch.graph import arcs as tarcs
+from soapdenovo_trans_tpu_torch.graph import tourbus as ttour
+from soapdenovo_trans_tpu_torch.kernels import wave
+from tests.test_bubbles import _multinode_bubble_reads, build
+from tests.test_torch_tourbus import _many_bubbles
+from tests.test_torch_wave_kernels_gpu import (CHAIN_CASES, CLAIM_CASES,
+                                               MAX_COV, chains_inputs,
+                                               claim_inputs, wave_case)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+# --- the numpy loops: one candidate at a time ------------------------
+
+def _get(x, i, fill):
+    return int(x[i]) if 0 <= i < len(x) else fill
+
+
+def chains_loop(prev, u, t0, cmask, twin, m):
+    """``chains`` one candidate at a time."""
+    c = len(u)
+    maj, mnr = np.full((c, m), -1), np.full((c, m), -1)
+    tw_maj, tw_mnr = np.full((c, m), -1), np.full((c, m), -1)
+    s_node, ends = np.full(c, -1), np.full((c, 4), -1)
+    found = np.zeros(c, bool)
+    n_back = 0
+    for r in range(c):
+        ca, cb = [int(t0[r])], [int(u[r])]
+        while len(ca) < m + 2:
+            ca.append(_get(prev, ca[-1], -1))
+        while len(cb) < m + 1:
+            cb.append(_get(prev, cb[-1], -1))
+        meet = None  # the least i + j, then the least i
+        for i in range(1, m + 2):
+            for j in range(m + 1):
+                if ca[i] >= 0 and ca[i] == cb[j] and (
+                        meet is None or i + j < sum(meet)):
+                    meet = (i, j)
+        fnd = meet is not None and bool(cmask[r])
+        n_back += fnd
+        if fnd:
+            i_s, j_s = meet
+            s_node[r] = ca[i_s]
+            path_a = ca[1:i_s][::-1]
+            path_b = cb[:j_s][::-1]
+            maj[r, :len(path_a)] = path_a
+            mnr[r, :len(path_b)] = path_b
+        tw_maj[r] = [_get(twin, x, -1) for x in maj[r]]
+        tw_mnr[r] = [_get(twin, x, -1) for x in mnr[r]]
+        ends[r] = [s_node[r], t0[r], _get(twin, s_node[r], -1),
+                   _get(twin, t0[r], -1)]
+        side_a = set(maj[r]) | set(tw_maj[r]) | set(ends[r])
+        clash = any(x >= 0 and x in side_a
+                    for x in list(mnr[r]) + list(tw_mnr[r]))
+        clash |= any(x >= 0 and x == y for x, y in zip(mnr[r], tw_mnr[r]))
+        found[r] = fnd and not clash and (mnr[r] >= 0).any() and \
+            (maj[r] >= 0).any()
+    return maj, mnr, tw_maj, tw_mnr, s_node, ends, found, n_back
+
+
+def claim_apply_loop(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg,
+                     length, twin, deleted, from_ed, to_ed, mult):
+    """``claim_apply`` one candidate at a time: each edge's least
+    (rank, candidate), the winners, then each winner's apply.  Returns
+    its six outputs and what the cases check: the claims, ranks and
+    winners, and how many covers took the fallback."""
+    c, m = maj.shape
+    e = len(cvg)
+    claims, rank = [], []
+    for r in range(c):
+        claims.append([x for row in (maj, tw_maj, mnr, tw_mnr, ends)
+                       for x in row[r] if 0 <= x < e])
+        rank.append(sum(_get(cvg, x, 0) for x in mnr[r] if x >= 0))
+    owner = {}
+    for r in range(c):
+        if ok[r]:
+            for x in claims[r]:
+                owner[x] = min(owner.get(x, (rank[r], r)), (rank[r], r))
+    win = [bool(ok[r]) and all(owner[x] == (rank[r], r) for x in claims[r])
+           for r in range(c)]
+    cvg2, deleted2 = cvg.copy(), deleted.copy()
+    remap = np.arange(e)
+    fallbacks = 0
+    for r in np.flatnonzero(win):
+        cover, cum_b = [], 0
+        live = [x for x in maj[r] if x >= 0]
+        last = int(maj[r][max(len(live) - 1, 0)])
+        for x in mnr[r]:
+            lb = _get(length, x, 0)
+            mid, cum_b = cum_b + lb // 2, cum_b + lb
+            scale = mid * len_a[r] // len_b[r] if len_b[r] > 0 else 0
+            cv, cum_a = last, 0
+            for y in maj[r]:
+                ln = _get(length, y, 0)
+                if y >= 0 and cum_a <= scale < cum_a + ln:
+                    cv = int(y)
+                    break
+                cum_a += ln
+            cover.append(cv if x >= 0 else -1)
+            fallbacks += x >= 0 and cv == last and not any(
+                y >= 0 and y == last and _span_holds(maj[r], length, y, scale)
+                for y in maj[r])
+        for x, tx, cv in zip(mnr[r], tw_mnr[r], cover):
+            for node in (x, tx):
+                if 0 <= node < e:
+                    deleted2[node] = True
+            tcv = _get(twin, cv, -1)
+            if 0 <= cv < e:
+                cvg2[cv] += _get(cvg, x, 0)
+            if 0 <= tcv < e:
+                cvg2[tcv] += _get(cvg, tx, 0)
+        for idx, cov in ((mnr[r], cover),
+                         (tw_mnr[r], [_get(twin, cv, -1) for cv in cover])):
+            for x, cv in zip(idx, cov):
+                if 0 <= x < e:
+                    remap[x] = max(cv, 0)
+    new_f = np.array([_get(remap, f, -1) if f >= 0 else -1 for f in from_ed])
+    new_t = np.array([_get(remap, t, -1) if t >= 0 else -1 for t in to_ed])
+    loop = (new_f == new_t) & (from_ed != to_ed)
+    new_f[loop] = new_t[loop] = -1
+    new_mult = np.where(new_f >= 0, mult, 0)
+    return (np.clip(cvg2, 0, MAX_COV), deleted2, new_f, new_t, new_mult,
+            int(np.sum(win)), {"claims": claims, "rank": rank, "win": win,
+                               "fallbacks": fallbacks})
+
+
+def _span_holds(nodes, length, y, scale) -> bool:
+    """Whether node y's span along the path ``nodes`` holds ``scale``."""
+    cum = 0
+    for x in nodes:
+        ln = _get(length, x, 0)
+        if x == y:
+            return cum <= scale < cum + ln
+        cum += ln
+    return False
+
+
+def _assert_equal(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.numpy() if isinstance(g, torch.Tensor) else g
+        np.testing.assert_array_equal(np.asarray(g).astype(np.int64),
+                                      np.asarray(w).astype(np.int64),
+                                      err_msg=f"output {i}")
+
+
+@pytest.mark.parametrize("m", [3, 30])
+@pytest.mark.parametrize("name", CHAIN_CASES)
+def test_chains_plain_matches_loop(name, m):
+    case = wave_case(name, 48, m, 11)
+    xs = chains_inputs(case, "cpu")
+    got = wave.chains(*xs, m)
+    want = chains_loop(*(case[k] for k in ("prev", "u", "t0", "cmask",
+                                           "twin")), m)
+    _assert_equal(got, want)
+    found, n_back = want[6], want[7]
+    if name == "not_found":
+        assert n_back == 0
+    elif name in ("clash", "palindrome"):  # some met and were refused
+        assert 0 < found.sum() < n_back
+    else:
+        assert found.sum() > 0
+    if name == "ties":  # (2, 3) beat (3, 2): one majority node each
+        assert ((want[0] >= 0).sum(1) == 1).all()
+        assert ((want[1] >= 0).sum(1) == 3).all()
+
+
+@pytest.mark.parametrize("m", [3, 9])
+@pytest.mark.parametrize("name", CLAIM_CASES)
+def test_claim_apply_plain_matches_loop(name, m):
+    case = wave_case(name, 48, m, 21)
+    xs = claim_inputs(case, m, 5, "cpu")
+    got = wave.claim_apply(*xs)
+    want = claim_apply_loop(*(x.numpy() for x in xs))
+    _assert_equal(got, want)
+    cvg2, new_f, n_merged = want[0], want[2], want[5]
+    ok = xs[5].numpy()
+    from_ed, to_ed = case["from_ed"], case["to_ed"]
+    if name in ("equal_rank", "shared_edge"):  # some ok rows lost
+        assert 0 < n_merged < ok.sum()
+    if name == "equal_rank":  # of two equal ranks on one edge, the lower
+        info = want[6]         # candidate wins or neither does
+        ties = [(r1, r2) for r1 in range(len(ok)) for r2 in range(r1)
+                if ok[r1] and ok[r2] and info["rank"][r1] == info["rank"][r2]
+                and set(info["claims"][r1]) & set(info["claims"][r2])]
+        assert ties and not any(info["win"][r1] for r1, _r2 in ties)
+    if name == "cvg_cap":
+        assert (cvg2 == MAX_COV).any()
+    if name == "padded_rows":
+        pad = from_ed < 0
+        assert pad.sum() >= 40
+        assert (want[2][pad] == -1).all() and (want[3][pad] == -1).all() \
+            and (want[4][pad] == 0).all()
+    if name == "created_loop":
+        dropped = (new_f < 0) & (from_ed >= 0)
+        assert dropped.any()  # a self-loop the merge made
+        genuine = (from_ed == to_ed) & (from_ed >= 0)
+        assert (new_f[genuine] >= 0).all()  # kept
+    if name == "cover_fallback":  # a winner's node no majority span holds
+        assert want[6]["fallbacks"] > 0
+
+
+# --- the port's _wave against the JAX _wave, every wave of a pinch ----
+
+@functools.lru_cache(maxsize=None)
+def _graph(name):
+    """The port's (EdgeGraph, exact ArcSet) of a named fixture."""
+    if name == "mixed":  # SNPs and never-merging insertions
+        _table, eg, aset = _many_bubbles(60, indel_every=3)
+    else:
+        _t, _v, _spur, reads = _multinode_bubble_reads(
+            np.random.default_rng(7))
+        _table, eg, aset = build(reads)
+    teg = convert.to_torch(eg, "cpu")
+    tas = convert.to_torch(aset, "cpu")
+    n = tas.n
+    return teg, tarcs.ArcSet(tas.from_ed[:n], tas.to_ed[:n], tas.mult[:n],
+                             n)
+
+
+@pytest.mark.parametrize("level", [1, 2, 3])
+@pytest.mark.parametrize("name,cand_cap", [("mixed", 1024), ("mixed", 8),
+                                           ("multinode", 1024),
+                                           ("multinode", 8)])
+def test_wave_matches_jax_every_wave(monkeypatch, name, cand_cap, level):
+    """A pinch on the port's wave program; before each wave, the JAX
+    ``_wave`` and the port's ``_wave`` on the same state (the table at
+    the pinch's fixed capacity) give the same 11 outputs."""
+    monkeypatch.setattr(ttour, "CAND_CAP", cand_cap)
+    eg, aset = _graph(name)
+    m_max, diff = ttour._params_for(level)
+    prog = ttour.WaveProgram(eg, aset, m_max, diff)
+    args = (m_max, diff, ttour.SEQ_CAP, cand_cap)
+    waves = productive = 0
+    while True:
+        jeg = convert.to_numpy(prog.eg, junitigs.EdgeGraph)
+        jas = convert.to_numpy(prog.aset, jarcs.ArcSet)
+        want = jtour._wave(jeg, jas, jnp.asarray(prog.failed.numpy()),
+                           *args)
+        got = ttour._wave(prog.eg, prog.aset, prog.failed.clone(), *args)
+        _assert_equal(got, [np.asarray(w) for w in want])
+        waves += 1
+        n, over = prog.launch().tolist()[:2]
+        if n:
+            productive += 1
+            prog.apply()
+        elif not over:
+            break
+    assert productive >= 1
+    assert waves > productive or cand_cap == 1024

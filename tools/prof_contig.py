@@ -14,16 +14,19 @@ eagerly, the rest as replays of one captured CUDA graph.  Prints the
 stage's seconds, the Tour-Bus waves and seconds a wave, the captures and
 replays, the device-busy share of the profiled stage (the sum of kernel
 time over wall time), the kernels executed a wave and the graph launches
-(``cudaGraphLaunch`` calls) a wave, the identity kernel's device time a
-launch (the wave's one identity check) and the twelve kernels with the
-most device time, those run by the replays included.  Then the kernels
-of ``csrc/lcs.cu`` alone, 20 launches each under the profiler: the
-identity kernel at a real wave's shape (12 of 1,024 rows compared, paths
-of 24 bases) and at 1,024 x 384 with full paths, and the standalone LCS
-kernel at 1,024 x 384 with la = lb = 384; their device time a launch,
-which CUDA events around one call cannot separate from the wrapper's
-host time.  The last line is a JSON object of the same.  With
-``--unprofiled`` only the first ``contig -g`` runs (a size whose
+(``cudaGraphLaunch`` calls) a wave, the device time a launch of each
+kernel of ``csrc/lcs.cu`` and ``csrc/wave.cu`` a wave runs (the identity
+check; chains; claim, apply and arcs, the three kernels of claim_apply)
+and the twelve kernels with the most device time, those run by the
+replays included.  Then the hand kernels of the wave alone, 20 calls
+each under the profiler: the identity kernel at a real wave's shape (12
+of 1,024 rows compared, paths of 24 bases) and at 1,024 x 384 with full
+paths, the standalone LCS kernel at 1,024 x 384 with la = lb = 384, and
+chains and claim_apply on the ``mixed`` case of
+``tests/test_torch_wave_kernels_gpu.py`` at C = 1,024, m = 3; their
+device time a call, which CUDA events around one call cannot separate
+from the wrapper's host time.  The last line is a JSON object of the
+same.  With ``--unprofiled`` only the first ``contig -g`` runs (a size whose
 profile would not fit, such as 1,000,000 pairs): its seconds, waves,
 seconds a wave and peak bytes.  Imports nothing of JAX.
 """
@@ -45,9 +48,14 @@ import perf_e2e  # noqa: E402
 import profsum  # noqa: E402
 from soapdenovo_trans_tpu_torch import cli  # noqa: E402
 from soapdenovo_trans_tpu_torch.graph import tourbus  # noqa: E402
-from soapdenovo_trans_tpu_torch.kernels import lcs  # noqa: E402
+from soapdenovo_trans_tpu_torch.kernels import lcs, wave  # noqa: E402
+from tests import test_torch_wave_kernels_gpu as wave_cases  # noqa: E402
 from tests.test_torch_lcs_gpu import (identity_case,  # noqa: E402
                                       identity_to_device)
+
+# the hand kernels a wave runs, by name
+WAVE_KERNELS = ("identity_kernel", "chains_kernel", "claim_kernel",
+                "apply_kernel", "arcs_kernel")
 
 
 def timed_contig(prefix: str):
@@ -83,17 +91,46 @@ def identity_alone_us(name: str, reps: int = 20) -> float:
                      "identity_kernel", reps)
 
 
-def device_us(fn, kernel: str, reps: int) -> float:
-    """Device microseconds a launch of ``kernel`` over ``reps`` calls of
-    fn() under the profiler, after one warm-up call."""
+def wave_alone_us(reps: int = 20) -> dict:
+    """Device microseconds a call of chains (its kernel; the memset
+    before it is not a kernel) and of claim_apply (its three kernels) on
+    the ``mixed`` case of tests/test_torch_wave_kernels_gpu.py at C =
+    1,024, m = 3."""
+    case = wave_cases.wave_case("mixed", 1024, 3, 7)
+    chains_in = wave_cases.chains_inputs(case, "cuda")
+    claim_in = wave_cases.claim_inputs(case, 3, 7, "cuda")
+    return {"chains_alone_1024x3_us": device_us(
+                lambda: wave.chains(*chains_in, 3), ("chains_kernel",), reps),
+            "claim_apply_alone_1024x3_us": device_us(
+                lambda: wave.claim_apply(*claim_in),
+                ("claim_kernel", "apply_kernel", "arcs_kernel"), reps)}
+
+
+def device_us(fn, kernels, reps: int) -> float:
+    """Device microseconds a call of fn() spends in the kernels whose
+    names hold one of ``kernels`` (one name or a tuple), over ``reps``
+    calls under the profiler, after one warm-up call."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    seconds, launches = profsum.kernel_time(prof, kernel)
-    return 1e6 * seconds / max(launches, 1)
+    names = (kernels,) if isinstance(kernels, str) else kernels
+    return 1e6 * sum(profsum.kernel_time(prof, k)[0] for k in names) / reps
+
+
+def executions() -> dict:
+    """Executions of each hand kernel of the wave since the last reset."""
+    return {"identity_launches": lcs.IDENTITY_LAUNCHES,
+            "chains_launches": wave.CHAINS_LAUNCHES,
+            "claim_apply_launches": wave.CLAIM_APPLY_LAUNCHES}
+
+
+def reset_counts() -> None:
+    lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
+    wave.CHAINS_LAUNCHES = wave.CLAIM_APPLY_LAUNCHES = 0
+    tourbus.CAPTURES = tourbus.REPLAYS = 0
 
 
 def main() -> int:
@@ -109,7 +146,7 @@ def main() -> int:
         prefix = os.path.join(tmp, "asm")
         cli.main(["pregraph", "-s", cfg, "-K", "23", "-o", prefix])
         torch.cuda.reset_peak_memory_stats()
-        tourbus.CAPTURES = tourbus.REPLAYS = lcs.IDENTITY_LAUNCHES = 0
+        reset_counts()
         plain_res, plain_s = timed_contig(prefix)
         plain = {"card": card, "pairs": pairs,
                  "what": "contig -g on one card, unprofiled",
@@ -118,26 +155,32 @@ def main() -> int:
                  "s_per_wave_stage": plain_s / max(
                      plain_res.tourbus["waves"], 1),
                  "captures": tourbus.CAPTURES, "replays": tourbus.REPLAYS,
-                 "identity_launches": lcs.IDENTITY_LAUNCHES,
+                 **executions(),
                  "peak_bytes": torch.cuda.max_memory_allocated()}
         if "--unprofiled" in sys.argv:
             print(json.dumps(plain))
             return 0
-        lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
-        tourbus.CAPTURES = tourbus.REPLAYS = 0
+        reset_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             res, wall = timed_contig(prefix)
     waves = res.tourbus["waves"]
-    if lcs.IDENTITY_LAUNCHES != waves or plain_res.tourbus["waves"] != waves:
-        raise AssertionError(f"{lcs.IDENTITY_LAUNCHES} identity launches "
-                             f"over {waves} waves")
+    counts = executions()
+    if set(counts.values()) != {waves} or \
+            plain_res.tourbus["waves"] != waves:
+        raise AssertionError(f"{counts} kernel executions over {waves} "
+                             f"waves")
     if (tourbus.CAPTURES, tourbus.REPLAYS) != (int(waves >= 2),
                                                max(waves - 1, 0)):
         raise AssertionError(f"{tourbus.CAPTURES} captures and "
                              f"{tourbus.REPLAYS} replays over {waves} waves")
     summary = profsum.device_summary(prof, wall)
-    id_s, id_n = profsum.kernel_time(prof, "identity_kernel")
+    per_launch = {}
+    for name in WAVE_KERNELS:
+        sec, n = profsum.kernel_time(prof, name)
+        if n:
+            per_launch[name] = {"seconds": sec, "launches": n,
+                                "us_per_launch": 1e6 * sec / n}
     numbers = {
         "card": card, "pairs": pairs, "what": "contig -g on one card",
         "stage_s": plain_s, "profiled_stage_s": wall,
@@ -149,13 +192,13 @@ def main() -> int:
         "graph_launches_per_wave": profsum.runtime_calls(
             prof, "cudaGraphLaunch") / max(waves, 1),
         "unprofiled": plain,
-        "identity_kernel": {"seconds": id_s, "launches": id_n,
-                            "us_per_launch": 1e6 * id_s / max(id_n, 1)},
+        "wave_kernels": per_launch,
         "lcs_kernel_launches": lcs.LAUNCHES,
         **summary,
         "identity_alone_wave_1024x384_us": identity_alone_us("wave"),
         "identity_alone_1024x384_full_us": identity_alone_us("full"),
-        "lcs_alone_1024x384_full_us": lcs_alone_us()}
+        "lcs_alone_1024x384_full_us": lcs_alone_us(),
+        **wave_alone_us()}
     profsum.print_top("prof_contig", summary)
     print(json.dumps(numbers))
     return 0
