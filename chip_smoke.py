@@ -10,15 +10,23 @@ Phases, each of which raises on failure:
    ``nvidia-smi``), torch and CUDA versions; no card is an error;
 2. build the three sources of ``soapdenovo_trans_tpu_torch/csrc``, the
    merge-path kernel, the Tour-Bus kernels (``lcs.cu``: the identity
-   check and the standalone LCS) and the wave's candidate body
-   (``wave.cu``: chains and claim_apply), one ``nvcc`` each, started
-   together; each build's seconds are printed;
+   check and the standalone LCS) and the wave around it (``wave.cu``:
+   the front and the back, and the first entries chains and
+   claim_apply), one ``nvcc`` each, started together; each build's
+   seconds are printed;
 3. each kernel against its plain PyTorch version on the card.  The
-   chains and claim/apply kernels (``kernels/wave``): every case of
-   ``tests/test_torch_wave_kernels_gpu.py`` (loaded by path; C = 64 at
-   m = 3, 9 and 30, random and mixed ones at C = 1,024), all outputs
-   exact, and both timed (CUDA events, host us, the plain versions, the
-   bounds) at C = 1,024, m = 3.  The identity kernel (``kernels/lcs.identity_check``, the wave's path
+   kernels of ``kernels/wave``, on the cases of
+   ``tests/test_torch_wave_kernels_gpu.py`` (loaded by path): the front
+   on every front case (equal and extreme coverages, duplicate and
+   padded rows, no candidate, fewer, as many and more than cand_cap; 8
+   and 1,024 candidates, m = 3, 9 and 30), the back on each with ok rows
+   and without (its E- and A-sized outputs compared where it merged),
+   chains and claim_apply on their cases (C = 64 at m = 3, 9 and 30,
+   random and mixed ones at C = 1,024), all exact; all four timed (CUDA
+   events, host us, the plain versions, the bounds, and for the front
+   the library call ``torch.topk`` of the candidates' packed keys) on
+   the mixed and random front cases at 1,024 candidates, m = 3.  The
+   identity kernel (``kernels/lcs.identity_check``, the wave's path
    lengths, gate, LCS and verdict in one launch): the identity cases of
    ``tests/test_torch_lcs_gpu.py`` (loaded by path), all five outputs
    exact, and the median CUDA-event times of the kernel and the plain
@@ -54,8 +62,9 @@ Phases, each of which raises on failure:
    names its own path; ``.gz`` files decompressed); and ``all`` on a
    mesh of two logical shards of each device (``cpu,cpu`` and
    ``cuda:0,cuda:0``) must write the files of the one-device ``all``;
-   the cuda runs must execute the chains, identity and claim/apply
-   kernels once each a Tour-Bus wave of their contig stages, and run
+   the cuda runs must execute the front, identity and back kernels
+   once each a Tour-Bus wave of their contig stages (chains and
+   claim_apply never), and run
    each pinch as a wave program
    (``graph/tourbus.WaveProgram``): one CUDA graph captured a pinch of
    two waves or more, every wave after the first a replay (the
@@ -70,19 +79,23 @@ Phases, each of which raises on failure:
 6. the main path: ``all -K 23`` through ``cli.main`` on the same
    500,000 pairs, with the launch
    counts reset just before (``all`` resets the peak-memory statistics
-   before each stage).  The chains, identity and claim/apply kernels
-   must execute once each a Tour-Bus wave, the pinch be captured once
+   before each stage).  The front, identity and back kernels must
+   execute once each a Tour-Bus wave, the pinch be captured once
    and every later wave be a replay (the standalone LCS kernel's
    launches, now 0, are printed; so are the captures, the replays and
    the host microseconds of a replay, ``WaveRecorder``); the identity
    inputs of every 512th wave are kept (16 waves: copies of their node
    lists and found flags, and the graph's tensors, which every wave
    shares; the peak bytes of contig, map and scaff then include them,
-   and the script prints their bytes), and the chains and claim/apply
-   inputs of the same waves and of every 64th productive one, copied
-   to the host; after the run each kernel is held against its plain
-   version and timed on them (the kernels on the waves the main path
-   gives them), and their coverage must lie in [0, 16,000].  Until the
+   and the script prints their bytes), and the front and back inputs
+   of the same waves and of every 64th productive one, copied to the
+   host (``failed`` as the wave found it); after the run the front, the
+   back, chains (on the plain front's forest and rows) and claim_apply
+   (on the back's inputs) are each held against their plain version and
+   timed on them (the kernels on the waves the main path gives them;
+   the front beside ``torch.topk`` of its candidates' keys, the back on
+   the waves that merged and those that did not apart), and their
+   coverage must lie in [0, 16,000].  Until the
    LCS kernel the contig stage at 1,000,000 pairs took about 950 s on an
    H100 (31,426 waves of 30 ms), more than this script's time allows.
    Checks: the .contig headers and sequence lengths agree with
@@ -110,9 +123,9 @@ Phases, each of which raises on failure:
    merge kernel; at 300,000 pairs Tour-Bus after splitting runs 4,792
    waves, 123-159 s, too long beside phase 6): .path holds as many
    records as the recorder counted, .markOnEdge one line per edge, the
-   repeat edges split are reported, and the chains, identity and
-   claim/apply kernels executed once each a Tour-Bus wave of ``contig
-   -R``, its pinch captured once and
+   repeat edges split are reported, and the front, identity and back
+   kernels executed once each a Tour-Bus wave of ``contig -R``, its
+   pinch captured once and
    replayed (captures, replays and host microseconds a replay printed).
    Seconds of every part and peak bytes are printed;
 8. the mesh path at full width, on four logical shards of the one
@@ -136,15 +149,15 @@ Phases, each of which raises on failure:
    byte for byte (``.gz`` files decompressed, the prefix replaced), and
    the pregraph edges must decode to the same sequences.  Each fixture
    is one counting build unit, so the merge kernel is not launched here;
-   the chains, identity and claim/apply kernels execute once each a
-   wave of their contig stages, and a pinch of two waves or more is
+   the front, identity and back kernels execute once each a wave of
+   their contig stages, and a pinch of two waves or more is
    captured once and replayed.
 
 The lines before the last two are JSON objects of phase 9's, phase 8's,
 phase 7's and the main path's numbers, last to first; the
-second-to-last describes the five kernels (merge_path, identity, lcs,
-chains, claim_apply; the standalone LCS one with ``"on_main_path":
-false``); the last line is
+second-to-last describes the seven kernels (merge_path, identity, lcs,
+front, back, chains, claim_apply; the standalone LCS one, chains and
+claim_apply with ``"on_main_path": false``); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing
 of the JAX package (``soapdenovo_trans_tpu``), which it checks after
 phase 9; the reads come from ``perf_e2e.synth`` and the fixtures of
@@ -215,6 +228,33 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device ms a call of fn() (kernels that a CUDA graph can capture)
+    takes without the host's launch cost: one call captured into a CUDA
+    graph (on a side stream, without ``torch.cuda.graph``'s garbage
+    collection), ``reps`` replays between two CUDA events, over
+    ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.synchronize()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def sorted_rows(rng: np.random.Generator, n: int, dup: bool, dev):
@@ -458,27 +498,98 @@ def chains_bound_ms(wave, inputs, outputs) -> tuple:
     return bound_of(moved, 2 * c * ((m + 2) * (m + 1) + 2 * m * (2 * m + 4)))
 
 
-def claim_bound_ms(inputs) -> tuple:
-    """(bound ms, what sets it) of one claim_apply call on this call's
-    inputs.  The bytes it must move: ok (1 B a row) and each ok row's
-    four node lists, ends, len_a and len_b (32·m + 48 B); cvg and deleted
-    (9 B an edge) and the arc rows (24 B a row); a length for each node
-    in 0..E-1 of an ok row's two paths and a twin for each of its cover
-    nodes, at most one a minority node (8 B each); the outputs, cvg2 and
-    deleted2 (9 B an edge), the new arc rows (24 B a row) and the count.
-    The operations: each ok row's claims (4m + 4) and spans (m² for the
-    covers), two 32-bit operations each."""
+def claim_work(inputs) -> tuple:
+    """(bytes, operations) one claim_apply call on these inputs must move
+    and do.  The bytes: ok (1 B a row) and each ok row's four node lists,
+    ends, len_a and len_b (32·m + 48 B); cvg and deleted (9 B an edge)
+    and the arc rows (24 B a row); a length for each node in 0..E-1 of an
+    ok row's two paths and a twin for each of its cover nodes, at most one
+    a minority node (8 B each); the outputs, cvg2 and deleted2 (9 B an
+    edge), the new arc rows (24 B a row) and the count.  The operations:
+    each ok row's claims (4m + 4) and spans (m² for the covers), two
+    32-bit operations each."""
     maj, mnr, ok, cvg, from_ed = inputs[0], inputs[1], inputs[5], \
         inputs[8], inputs[12]
     (c, m), e, a = maj.shape, cvg.shape[0], from_ed.shape[0]
     n_ok = int(ok.sum())
     nodes = in_range(maj[ok], e) + 2 * in_range(mnr[ok], e)
     moved = c + n_ok * (32 * m + 48) + 18 * e + 48 * a + 8 * nodes + 8
-    return bound_of(moved, 2 * n_ok * (4 * m + 4 + m * m))
+    return moved, 2 * n_ok * (4 * m + 4 + m * m)
+
+
+def claim_bound_ms(inputs) -> tuple:
+    """(bound ms, what sets it) of one claim_apply call on this call's
+    inputs (``claim_work``) over the memory rate and the CUDA cores'
+    integer rate."""
+    return bound_of(*claim_work(inputs))
+
+
+def front_bound_ms(inputs, outputs) -> tuple:
+    """(bound ms, what sets it) of one front call on this call's inputs
+    and plain outputs.  The bytes it must move: the arc rows, mult and
+    failed (25 B a row); deleted for each edge in 0..E-1 a row names (1
+    B) and the coverage of each from-edge of a live arc (8 B); a twin for
+    each path node, fork and t0 in 0..E-1 (8 B); the outputs, cid_arc, u,
+    t0, cmask, the four (C, m) lists, ends and found (58 + 32·m B a row)
+    and the two counts.  The operations: the walks' compares as
+    ``chains_bound_ms`` counts them; the forest's and the select's few
+    operations a row are fewer than the bytes."""
+    n_edges, deleted, cvg, _twin, from_ed, to_ed, mult, _failed, m, _cap = \
+        inputs
+    _cid, _cmask, _u, t0, maj, mnr, _tw_maj, _tw_mnr, ends = outputs[:9]
+    e, a, c = cvg.shape[0], from_ed.shape[0], t0.shape[0]
+    named = torch.cat([from_ed, to_ed])
+    named = named[(named >= 0) & (named < e)]
+    live = (torch.arange(e, device=cvg.device) < n_edges) & ~deleted
+    ok_f = (from_ed >= 0) & (from_ed < e)
+    ok_t = (to_ed >= 0) & (to_ed < e)
+    varc = (mult > 0) & ok_f & ok_t & live[from_ed.clamp(0, e - 1)] & \
+        live[to_ed.clamp(0, e - 1)]
+    twins = sum(in_range(x, e) for x in (maj, mnr, ends[:, 0], t0))
+    moved = (25 * a + torch.unique(named).numel()
+             + 8 * torch.unique(from_ed[varc]).numel() + 8 * twins
+             + c * (58 + 32 * m) + 16)
+    return bound_of(moved, 2 * c * ((m + 2) * (m + 1) + 2 * m * (2 * m + 4)))
+
+
+def back_bound_ms(inputs, counts) -> tuple:
+    """(bound ms, what sets it) of one back call on this call's inputs
+    and counts.  When it merged: what claim_apply moves and does
+    (``claim_work``), with compared and cmask (2 B a row) and the counts
+    read and written (48 B).  When nothing merged: ok, compared and cmask
+    (3 B a row), the cid_arc entry and the failed byte of each row it
+    marks (9 B), and the counts (48 B)."""
+    ok, cmask = inputs[5], inputs[16]
+    c = ok.shape[0]
+    if int(counts[0]):
+        moved, ops = claim_work(inputs[:15])
+        return bound_of(moved + 2 * c + 48, ops)
+    return bound_of(3 * c + 9 * int((cmask & ~ok).sum()) + 48, 0)
+
+
+def front_topk_ms(wave, inputs, want, reps: int = 10) -> float:
+    """The library call that computes the front's candidate order:
+    ``torch.topk(keys, min(cand_cap, n_cand), largest=False,
+    sorted=True)`` on the candidates' packed (coverage << 32) + row keys
+    (built outside the timing; the port never calls it); its rows must
+    be cid_arc's head.  Median CUDA-event ms."""
+    n_edges, deleted, cvg, _twin, from_ed, to_ed, mult, failed, _m, cap = \
+        inputs
+    _prev, order, cmask, *_ = wave.candidates_plain(
+        n_edges, deleted, cvg, from_ed, to_ed, mult, failed,
+        from_ed.shape[0])
+    rows = order[cmask]
+    keys = (cvg[from_ed[rows]] << 32) + rows
+    k = min(cap, keys.numel())
+    top = torch.topk(keys, k, largest=False, sorted=True).values
+    if not torch.equal(top & 0xFFFFFFFF, want[0][:k]):
+        raise AssertionError("torch.topk's order differs from the front's")
+    return cuda_ms(lambda: torch.topk(keys, k, largest=False, sorted=True),
+                   reps)
 
 
 def check_wave(wave, cases, chains_in, claim_in) -> tuple:
-    """Both wave kernels against their plain versions on one call's
+    """chains and claim_apply against their plain versions on one call's
     inputs each: returns (max abs error, which must be 0, the plain
     chains outputs)."""
     got = wave.chains(*chains_in), wave.claim_apply(*claim_in)
@@ -494,31 +605,106 @@ def check_wave(wave, cases, chains_in, claim_in) -> tuple:
     return max(errs), want[0]
 
 
-def time_wave(wave, chains_in, claim_in, chains_out, reps: int = 10) -> dict:
-    """Both wave kernels and their plain versions timed on one call's
+def check_front(wave, cases, inputs) -> tuple:
+    """The front against its plain version on one call's inputs; returns
+    (max abs error, which must be 0, the plain outputs)."""
+    got, want = wave.front(*inputs), wave.front_plain(*inputs)
+    torch.cuda.synchronize()
+    err = cases.max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"front kernels differ from the plain version "
+                             f"(max abs err {err}; A={inputs[4].shape[0]}, "
+                             f"E={inputs[2].shape[0]}, m={inputs[8]}, "
+                             f"cand_cap={inputs[9]})")
+    return err, want
+
+
+def check_back(wave, cases, inputs) -> tuple:
+    """The back against its plain version on one call's inputs, each on
+    its own copy of failed: the counts and failed, and the other outputs
+    where it merged; returns (max abs error, which must be 0, the plain
+    outputs)."""
+    mine, plain = inputs[-1].clone(), inputs[-1].clone()
+    got = wave.back(*inputs[:-1], mine)
+    want = wave.back_plain(*inputs[:-1], plain)
+    torch.cuda.synchronize()
+    err = cases.back_err(got, want, mine, plain)
+    if err:
+        raise AssertionError(f"back kernels differ from the plain version "
+                             f"(max abs err {err}; merged {int(want[0][0])}, "
+                             f"A={inputs[12].shape[0]}, "
+                             f"E={inputs[8].shape[0]})")
+    return err, want
+
+
+def check_entries(wave, cases, front_in, back_in) -> tuple:
+    """The four entries of csrc/wave.cu against their plain versions on
+    one wave's front and back inputs: chains on the forest and the rows
+    of the plain front, claim_apply on the back's first 15 inputs; the
+    back's cid_arc, cmask and n_cand must be the plain front's.  Returns (max abs error, which must be 0, each entry's inputs, the
+    plain outputs of the front, the back and chains)."""
+    err_f, want_f = check_front(wave, cases, front_in)
+    err_b, want_b = check_back(wave, cases, back_in)
+    # the back's inputs hold the rows the front gave on its inputs
+    if not (torch.equal(want_f[0], back_in[17])
+            and torch.equal(want_f[1], back_in[16])
+            and int(want_f[11]) == int(back_in[18])):
+        raise AssertionError("the back's cid_arc, cmask or n_cand differ "
+                             "from the plain front's on the same wave")
+    prev = wave.candidates_plain(*front_in[:3], *front_in[4:8],
+                                 front_in[9])[0]
+    _cid, cmask, u, t0 = want_f[:4]
+    chains_in = (prev, u, t0, cmask, front_in[3], front_in[8])
+    err_c, want_c = check_wave(wave, cases, chains_in, back_in[:15])
+    inputs = {"front": front_in, "back": back_in, "chains": chains_in,
+              "claim_apply": back_in[:15]}
+    return (max(err_f, err_b, err_c), inputs,
+            {"front": want_f, "back": want_b, "chains": want_c})
+
+
+def time_entries(wave, inputs, outs, reps: int = 10) -> dict:
+    """The four entries and their plain versions timed on one wave's
     inputs (median CUDA-event ms of a wrapper call, its Python included;
-    host us of a call), with the bounds."""
-    (c, m), e = claim_in[0].shape, claim_in[8].shape[0]
-    out = {"c": c, "m": m, "e": e, "a": claim_in[12].shape[0],
-           "ok_rows": int(claim_in[5].sum())}
-    for name, fn, plain, xs, bound in (
-            ("chains", wave.chains, wave.chains_plain, chains_in,
-             chains_bound_ms(wave, chains_in, chains_out)),
-            ("claim_apply", wave.claim_apply, wave.claim_apply_plain,
-             claim_in, claim_bound_ms(claim_in))):
+    device ms of its kernels replayed from a CUDA graph, ``graph_ms``;
+    host us of a call), with the bounds, and the front's library call
+    (``front_topk_ms``).  The back's calls mark a copy of failed."""
+    back_in = inputs["back"]
+    (c, m), e = back_in[0].shape, back_in[8].shape[0]
+    out = {"c": c, "m": m, "e": e, "a": back_in[12].shape[0],
+           "ok_rows": int(back_in[5].sum()),
+           "merged": int(outs["back"][0][0]),
+           "n_cand": int(outs["front"][11])}
+    calls = {
+        "front": (wave.front, wave.front_plain, inputs["front"],
+                  front_bound_ms(inputs["front"], outs["front"])),
+        "back": (wave.back, wave.back_plain,
+                 (*back_in[:-1], back_in[-1].clone()),
+                 back_bound_ms(back_in, outs["back"][0])),
+        "chains": (wave.chains, wave.chains_plain, inputs["chains"],
+                   chains_bound_ms(wave, inputs["chains"], outs["chains"])),
+        "claim_apply": (wave.claim_apply, wave.claim_apply_plain,
+                        inputs["claim_apply"],
+                        claim_bound_ms(inputs["claim_apply"]))}
+    for name, (fn, plain, xs, bound) in calls.items():
         out[name] = {"ms": cuda_ms(lambda: fn(*xs), reps),
+                     "device_ms": graph_ms(lambda: fn(*xs)),
                      "host_us": host_us(lambda: fn(*xs)),
                      "plain_ms": cuda_ms(lambda: plain(*xs), reps=3, warm=1),
                      "bound_ms": bound[0], "bound_by": bound[1]}
+    out["front"]["library_ms"] = front_topk_ms(wave, inputs["front"],
+                                               outs["front"], reps)
     return out
 
 
 def phase_wave(wave, dev) -> dict:
-    """The chains and claim/apply kernels against their plain versions on
-    the card test's cases (every named case of
-    ``tests/test_torch_wave_kernels_gpu.py`` at m = 3, 9 and 30; random
-    and mixed ones at C = 1,024), all outputs exact, and timed at a
-    wave's C = 1,024 and m = 3 on its random and mixed cases."""
+    """The kernels of csrc/wave.cu against their plain versions on the
+    card test's cases (``tests/test_torch_wave_kernels_gpu.py``): the
+    front on every front case (cand_cap 8 and 1,024; m = 3, 9 and 30),
+    the back on each with ok rows and without, chains and claim_apply on
+    every named case at m = 3, 9 and 30 and random and mixed ones at C =
+    1,024; all outputs exact (the back's E- and A-sized ones where it
+    merged).  Then all four timed on the ``mixed`` and ``random`` front
+    cases at cand_cap 1,024, m = 3, the back with ok rows."""
     cases = load_test("test_torch_wave_kernels_gpu.py")
     err = 0
     for i, (name, c, m) in enumerate(cases.GPU_CASES):
@@ -526,57 +712,85 @@ def phase_wave(wave, dev) -> dict:
         err = max(err, check_wave(
             wave, cases, (*cases.chains_inputs(case, dev), m),
             cases.claim_inputs(case, m, i, dev))[0])
-    log(f"[wave] {len(cases.GPU_CASES)} cases (C = 64 and 1,024; m = 3, 9, "
-        f"30): chains and claim/apply equal to their plain versions "
+    for i, (name, cap, m) in enumerate(cases.FRONT_GPU_CASES):
+        case = cases.front_case(name, cap, m, i)
+        e, want = check_front(wave, cases,
+                              (*cases.front_inputs(case, dev), m, cap))
+        cases.check_front_case(name, cap, int(want[11]))
+        err = max(err, e)
+    merged = 0
+    for i, (name, cap, m, productive) in enumerate(cases.BACK_GPU_CASES):
+        e, want = check_back(wave, cases, cases.back_inputs(
+            cases.front_case(name, cap, m, i // 2), m, cap, i, productive,
+            dev))
+        merged += int(want[0][0]) > 0
+        err = max(err, e)
+    log(f"[wave] front {len(cases.FRONT_GPU_CASES)} cases, back "
+        f"{len(cases.BACK_GPU_CASES)} ({merged} merged), chains and "
+        f"claim/apply {len(cases.GPU_CASES)}: equal to their plain versions "
         f"(exact, tolerance 0)")
     times = {}
     for name in ("mixed", "random"):
-        case = cases.wave_case(name, 1024, 3, 7)
-        chains_in = (*cases.chains_inputs(case, dev), 3)
-        claim_in = cases.claim_inputs(case, 3, 7, dev)
-        e, chains_out = check_wave(wave, cases, chains_in, claim_in)
+        case = cases.front_case(name, 1024, 3, 7)
+        e, inputs, outs = check_entries(
+            wave, cases, (*cases.front_inputs(case, dev), 3, 1024),
+            cases.back_inputs(case, 3, 1024, 7, True, dev))
         err = max(err, e)
-        times[f"{name}_1024x3"] = time_wave(wave, chains_in, claim_in,
-                                            chains_out)
+        times[f"{name}_1024x3"] = time_entries(wave, inputs, outs)
     log("[wave] " + json.dumps(times))
     return {"max_abs_err": err, "synthetic": times}
 
 
 def wave_on_kept_inputs(wave, kept, dev) -> dict:
-    """The chains and claim/apply kernels on the inputs kept from the main
-    path's waves (host copies, moved back to the card one wave at a
-    time): each held against its plain version, the coverage checked to
-    lie in [0, 16,000] (the claim key's ranks need it), both kernels and
-    both plain versions timed on each; medians and maxima."""
+    """The kernels of csrc/wave.cu on the front and back inputs kept from
+    the main path's waves (host copies, moved back to the card one wave at
+    a time): each of the four entries held against its plain version, the
+    coverage checked to lie in [0, 16,000] (the claim key's ranks need
+    it), all four and their plain versions timed on each; medians and
+    maxima, and the back's medians over the waves that merged and those
+    that did not."""
     cases = load_test("test_torch_wave_kernels_gpu.py")
     err, rows = 0, []
     for call in kept:
-        chains_in, claim_in = (tuple(x.to(dev) if isinstance(
+        front_in, back_in = (tuple(x.to(dev) if isinstance(
             x, torch.Tensor) else x for x in xs) for xs in call)
-        cvg = claim_in[8]
+        cvg = back_in[8]
         if int(cvg.min()) < 0 or int(cvg.max()) > cases.MAX_COV:
             raise AssertionError(f"a wave's coverage lies outside [0, "
                                  f"{cases.MAX_COV}]: {int(cvg.min())}, "
                                  f"{int(cvg.max())}")
-        e, chains_out = check_wave(wave, cases, chains_in, claim_in)
+        e, inputs, outs = check_entries(wave, cases, front_in, back_in)
         err = max(err, e)
-        rows.append(time_wave(wave, chains_in, claim_in, chains_out, reps=5))
-        del chains_in, claim_in, chains_out
+        rows.append(time_entries(wave, inputs, outs, reps=5))
+        del front_in, back_in, inputs, outs
     out = {"calls_kept": len(kept), "max_abs_err": err,
            "coverage_in_range": True,
+           "merged_calls": sum(r["merged"] > 0 for r in rows),
            "ok_rows_max": max(r["ok_rows"] for r in rows),
+           "n_cand_median": statistics.median(r["n_cand"] for r in rows),
            "e": rows[0]["e"], "a": rows[0]["a"], "c": rows[0]["c"],
            "m": rows[0]["m"]}
-    for name in ("chains", "claim_apply"):
+    for name in ("front", "back", "chains", "claim_apply"):
         got = [r[name] for r in rows]
         bound = sorted((g["bound_ms"], g["bound_by"]) for g in got)
         out[name] = {
             "ms": statistics.median(g["ms"] for g in got),
             "ms_max": max(g["ms"] for g in got),
+            "device_ms": statistics.median(g["device_ms"] for g in got),
+            "device_ms_max": max(g["device_ms"] for g in got),
             "host_us": statistics.median(g["host_us"] for g in got),
             "plain_ms": statistics.median(g["plain_ms"] for g in got),
             "bound_ms": bound[len(bound) // 2][0],
             "bound_by": bound[len(bound) // 2][1]}
+    out["front"]["library_ms"] = statistics.median(
+        r["front"]["library_ms"] for r in rows)
+    for merged in (True, False):
+        got = [r["back"] for r in rows if (r["merged"] > 0) == merged]
+        if got:
+            out["back"]["merged" if merged else "unproductive"] = {
+                key: statistics.median(g[key] for g in got)
+                for key in ("ms", "device_ms", "host_us", "plain_ms",
+                            "bound_ms")}
     return out
 
 
@@ -586,18 +800,20 @@ class WaveRecorder:
     part of each launch (the device not waited for: the eager first
     wave's launches, the capture, a graph replay), and keeps the
     identity-check inputs of every ``every``-th wave (0: none) and the
-    inputs of the wave's chains and claim/apply kernels of every
-    ``every``-th wave and every ``every_productive``-th productive one
-    (0: none).  A wave's inputs are the tensors of the last call of each
-    wrapper, the eager wave's or the one captured into the graph, which
-    each replay refills.  A kept wave's identity node lists and found
-    flags are copied on the card right after its launch (in stream
-    order), the graph tensors, which every wave of a pinch shares, kept
-    by reference; they stay allocated until the run ends, so the stages'
-    peak bytes hold them.  The chains and claim/apply inputs are copied
-    to the host (a blocking copy after the launch; at a productive wave,
-    before ``apply`` overwrites the buffers), which the peak bytes do not
-    see."""
+    inputs of the wave's front and back of every ``every``-th wave and
+    every ``every_productive``-th productive one (0: none).  A wave's
+    inputs are the tensors of the last call of each wrapper, the eager
+    wave's or the one captured into the graph, which each replay
+    refills.  A kept wave's identity node lists and found flags are
+    copied on the card right after its launch (in stream order), the
+    graph tensors, which every wave of a pinch shares, kept by
+    reference; they stay allocated until the run ends, so the stages'
+    peak bytes hold them.  The front and back inputs are copied to the
+    host (a blocking copy after the launch; at a productive wave, before
+    ``apply`` overwrites the buffers), which the peak bytes do not see,
+    with ``failed`` as the wave found it: copied on the card before the
+    launch of every ``every``-th wave (the back marks it in place when
+    nothing merges), as it is after a productive one."""
 
     def __init__(self, lcs, wave, tourbus, every: int = 0,
                  every_productive: int = 0):
@@ -606,16 +822,21 @@ class WaveRecorder:
         self.waves, self.productive, self.kept, self.last = 0, 0, [], None
         self.kept_wave, self.last_wave = [], {}
         self.host_s = {"eager": [], "capture": [], "replay": []}
-        self.real = {"identity": lcs.identity_check, "chains": wave.chains,
-                     "claim_apply": wave.claim_apply,
+        self.real = {"identity": lcs.identity_check, "front": wave.front,
+                     "back": wave.back,
                      "launch": tourbus.WaveProgram.launch,
                      "apply": tourbus.WaveProgram.apply}
 
-    def keep_wave(self) -> None:
+    def keep_wave(self, failed) -> None:
+        """The last wave's front and back inputs, ``failed`` as the wave
+        found it, copied to the host."""
+        front_in = (*self.last_wave["front"][:7], failed,
+                    *self.last_wave["front"][8:])
+        back_in = (*self.last_wave["back"][:-1], failed)
         self.kept_wave.append(tuple(
-            tuple(x.cpu() if isinstance(x, torch.Tensor) else x
-                  for x in self.last_wave[name])
-            for name in ("chains", "claim_apply")))
+            tuple(x.to("cpu", copy=True) if isinstance(x, torch.Tensor)
+                  else x for x in xs)
+            for xs in (front_in, back_in)))
 
     def __enter__(self):
         real = self.real
@@ -624,44 +845,47 @@ class WaveRecorder:
             self.last = inputs
             return real["identity"](*inputs)
 
-        def chains(*inputs):
-            self.last_wave["chains"] = inputs
-            return real["chains"](*inputs)
+        def front(*inputs):
+            self.last_wave["front"] = inputs
+            return real["front"](*inputs)
 
-        def claim_apply(*inputs):
-            self.last_wave["claim_apply"] = inputs
-            return real["claim_apply"](*inputs)
+        def back(*inputs):
+            self.last_wave["back"] = inputs
+            return real["back"](*inputs)
 
         def launch(prog):
             kind = ("eager", "capture", "replay")[min(prog.waves, 2)]
+            keep = self.every and self.waves % self.every == 0
+            failed = prog.failed.clone() if keep else None
             t0 = time.perf_counter()
             counts = real["launch"](prog)
             self.host_s[kind].append(time.perf_counter() - t0)
-            if self.every and self.waves % self.every == 0:
+            if keep:
                 maj, mnr, found, *rest = self.last
                 self.kept.append((maj.clone(), mnr.clone(), found.clone(),
                                   *rest))
-                self.keep_wave()
+                self.keep_wave(failed)
             self.waves += 1
             return counts
 
         def apply(prog):
             if self.every_productive and \
                     self.productive % self.every_productive == 0:
-                self.keep_wave()
+                # a productive wave leaves failed as it found it
+                self.keep_wave(prog.failed)
             self.productive += 1
             return real["apply"](prog)
 
         self.lcs.identity_check = identity
-        self.wave.chains, self.wave.claim_apply = chains, claim_apply
+        self.wave.front, self.wave.back = front, back
         self.tourbus.WaveProgram.launch = launch
         self.tourbus.WaveProgram.apply = apply
         return self
 
     def __exit__(self, *exc):
         self.lcs.identity_check = self.real["identity"]
-        self.wave.chains = self.real["chains"]
-        self.wave.claim_apply = self.real["claim_apply"]
+        self.wave.front = self.real["front"]
+        self.wave.back = self.real["back"]
         self.tourbus.WaveProgram.launch = self.real["launch"]
         self.tourbus.WaveProgram.apply = self.real["apply"]
 
@@ -676,17 +900,32 @@ class WaveRecorder:
                 "host_us_capture": us["capture"]}
 
 
+# the entries of the Tour-Bus wave's kernels, in the order of
+# ``wave_executions``: the three a wave runs, then the first entries of
+# csrc/wave.cu, which it no longer runs
+WAVE_ENTRIES = ("identity", "front", "back", "chains", "claim_apply")
+
+
 def wave_executions(lcs, wave) -> tuple:
-    """Executions of the three kernels of a Tour-Bus wave: the identity
-    check, chains and claim_apply."""
-    return (lcs.IDENTITY_LAUNCHES, wave.CHAINS_LAUNCHES,
-            wave.CLAIM_APPLY_LAUNCHES)
+    """Executions of the three kernels of a Tour-Bus wave, the identity
+    check, front and back, then of chains and claim_apply (0 on every
+    path since the front and the back)."""
+    return (lcs.IDENTITY_LAUNCHES, wave.FRONT_LAUNCHES, wave.BACK_LAUNCHES,
+            wave.CHAINS_LAUNCHES, wave.CLAIM_APPLY_LAUNCHES)
+
+
+def launch_numbers(launches) -> dict:
+    """A path's launches (merge, lcs, then ``wave_executions``) by name."""
+    return {"merge_launches": launches[0], "lcs_launches": launches[1],
+            **{f"{name}_launches": n
+               for name, n in zip(WAVE_ENTRIES, launches[2:])}}
 
 
 def reset_counts(merge_path, lcs, wave, tourbus) -> None:
     """Every kernel's launch count and the wave programs' captures and
     replays to 0."""
     merge_path.LAUNCHES = lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
+    wave.FRONT_LAUNCHES = wave.BACK_LAUNCHES = 0
     wave.CHAINS_LAUNCHES = wave.CLAIM_APPLY_LAUNCHES = 0
     tourbus.CAPTURES = tourbus.REPLAYS = 0
 
@@ -694,16 +933,18 @@ def reset_counts(merge_path, lcs, wave, tourbus) -> None:
 def check_wave_programs(tourbus, lcs, wave, waves, what: str) -> None:
     """The card's pinches ran as wave programs: one capture a pinch of two
     waves or more, every later wave a replay, one execution of each
-    kernel of the wave (identity, chains, claim_apply) a wave.  ``waves``:
-    the Tour-Bus waves of each pinch on the card."""
+    kernel of the wave (identity, front, back) a wave, and none of chains
+    or claim_apply.  ``waves``: the Tour-Bus waves of each pinch on the
+    card."""
     n = sum(waves)
     want = (sum(w >= 2 for w in waves), sum(max(w - 1, 0) for w in waves),
-            n, n, n)
+            n, n, n, 0, 0)
     got = (tourbus.CAPTURES, tourbus.REPLAYS, *wave_executions(lcs, wave))
     if got != want:
-        raise AssertionError(f"{what}: captures, replays, identity, chains "
-                             f"and claim_apply executions {got}, not {want} "
-                             f"for pinches of {list(waves)} waves")
+        raise AssertionError(f"{what}: captures, replays, identity, front, "
+                             f"back, chains and claim_apply executions "
+                             f"{got}, not {want} for pinches of "
+                             f"{list(waves)} waves")
 
 
 def identity_on_wave_inputs(lcs, kept) -> dict:
@@ -1026,9 +1267,10 @@ def phase_cpu_gpu(cli, merge_path, lcs, wave, tourbus, pg_stage, perf_e2e,
                              f"{lcs.IDENTITY_LAUNCHES} times over {waves} "
                              f"Tour-Bus waves")
     check_wave_programs(tourbus, lcs, wave, pinches, "the cuda runs")
-    log(f"[parity] the cuda runs executed the identity, chains and "
-        f"claim/apply kernels {wave_executions(lcs, wave)} times, once each "
-        f"a Tour-Bus wave; {tourbus.CAPTURES} wave captures and "
+    log(f"[parity] the cuda runs executed the identity, front, back, "
+        f"chains and claim/apply kernels {wave_executions(lcs, wave)} times, "
+        f"the first three once each a Tour-Bus wave; {tourbus.CAPTURES} wave "
+        f"captures and "
         f"{tourbus.REPLAYS} replays over pinches of {pinches} waves; the "
         f"standalone LCS kernel {lcs.LAUNCHES} times")
     return (merge_path.LAUNCHES, lcs.LAUNCHES, *wave_executions(lcs, wave))
@@ -1265,21 +1507,23 @@ def phase_all(cli, merge_path, lcs, wave, tourbus, smi: str, tmp: str,
     if not launches[2] == launches[3] == launches[4] == recorder.waves \
             == waves:
         raise AssertionError(
-            f"the identity, chains and claim/apply kernels executed "
-            f"{launches[2:]} times in {recorder.waves} launched waves over "
+            f"the identity, front and back kernels executed "
+            f"{launches[2:5]} times in {recorder.waves} launched waves over "
             f"{waves} Tour-Bus waves, not once each a wave")
     check_wave_programs(tourbus, lcs, wave, [waves], "all's contig stage")
     program = recorder.numbers()
-    log(f"[all] identity, chains and claim/apply kernel executions "
-        f"{launches[2:]} = Tour-Bus waves; standalone LCS kernel launches "
-        f"{launches[1]}; the wave program: " + json.dumps(program))
+    log(f"[all] identity, front and back kernel executions "
+        f"{launches[2:5]} = Tour-Bus waves; chains and claim/apply "
+        f"{launches[5:]}, standalone LCS kernel launches {launches[1]}; the "
+        f"wave program: " + json.dumps(program))
     id_wave = identity_on_wave_inputs(lcs, recorder.kept)
     log("[all] the identity kernel on the inputs of every 512th wave: "
         + json.dumps(id_wave))
     wave_real = wave_on_kept_inputs(wave, recorder.kept_wave, dev)
     del recorder
-    log("[all] the chains and claim/apply kernels on the inputs of every "
-        "512th wave and every 64th productive one: " + json.dumps(wave_real))
+    log("[all] the front, back, chains and claim/apply kernels on the "
+        "inputs of every 512th wave and every 64th productive one: "
+        + json.dumps(wave_real))
 
     # the contig stage
     result, table, k = res.contig, res.pregraph.table, K
@@ -1352,9 +1596,7 @@ def phase_all(cli, merge_path, lcs, wave, tourbus, smi: str, tmp: str,
                   "n50": sres.stats.get("N50", 0),
                   "transcript_n50": n50([len(s) for s in scaffolds]),
                   "phase_s": sres.phase_seconds},
-        "merge_launches": launches[0], "lcs_launches": launches[1],
-        "identity_launches": launches[2], "chains_launches": launches[3],
-        "claim_apply_launches": launches[4]}
+        **launch_numbers(launches)}
     peaks = ", ".join(f"{s} {b / 1e9:.2f}" for s, b in res.peak_bytes.items())
     log(f"[all] {all_s:.1f}s: " + ", ".join(
         f"{s} {t:.1f}s" for s, t in res.stage_seconds.items()) +
@@ -1497,8 +1739,8 @@ def phase_flags(cli, merge_path, lcs, wave, tourbus, perf_e2e, smi: str,
     if not launches[2] == launches[3] == launches[4] == recorder.waves \
             == waves:
         raise AssertionError(
-            f"the identity, chains and claim/apply kernels executed "
-            f"{launches[2:]} times in {recorder.waves} launched waves over "
+            f"the identity, front and back kernels executed "
+            f"{launches[2:5]} times in {recorder.waves} launched waves over "
             f"{waves} Tour-Bus waves of contig -R")
     check_wave_programs(tourbus, lcs, wave, [waves], "contig -R")
     program = recorder.numbers()
@@ -1521,18 +1763,16 @@ def phase_flags(cli, merge_path, lcs, wave, tourbus, perf_e2e, smi: str,
                  "waves": cres.tourbus["waves"],
                  "s_per_wave": cres.tourbus["s_per_wave"],
                  "wave_program": program},
-        "merge_launches": launches[0], "lcs_launches": launches[1],
-        "identity_launches": launches[2], "chains_launches": launches[3],
-        "claim_apply_launches": launches[4]}
+        **launch_numbers(launches)}
     log(f"[flags] {numbers['phase_s']:.1f}s: " + ", ".join(
         f"{name} {sec:.1f}s" for name, sec in seconds.items()) +
         f"; {pres.path_reads} read paths, {cres.reps_split} repeat edges "
         f"split; contig -R {cres.tourbus['waves']} Tour-Bus waves of "
         f"{cres.tourbus['s_per_wave'] * 1e3:.2f} ms ({program['captures']} "
         f"capture, {program['replays']} replays of "
-        f"{program['host_us_replay']:.1f} host us) on {smi}; identity, chains and "
-        f"claim/apply kernel executions {launches[2:]}, standalone LCS "
-        f"kernel {launches[1]}")
+        f"{program['host_us_replay']:.1f} host us) on {smi}; identity, "
+        f"front, back, chains and claim/apply kernel executions "
+        f"{launches[2:]}, standalone LCS kernel {launches[1]}")
     return launches, numbers, out
 
 
@@ -1619,10 +1859,8 @@ def phase_mesh(cli, merge_path, lcs, wave, tourbus, smi: str, tmp: str,
         "map": {"mapped": mres.mapped, "groups": mres.groups,
                 "phase_s": mres.phase_seconds, "exchanges": mres.exchanges,
                 "exchange_bytes": mres.exchange_bytes},
-        "merge_launches": launches, "lcs_launches": lcs.LAUNCHES,
-        "identity_launches": lcs.IDENTITY_LAUNCHES,
-        "chains_launches": wave.CHAINS_LAUNCHES,
-        "claim_apply_launches": wave.CLAIM_APPLY_LAUNCHES}
+        **launch_numbers((launches, lcs.LAUNCHES,
+                          *wave_executions(lcs, wave)))}
     log(f"[mesh] {numbers['phase_s']:.1f}s: pregraph "
         f"{seconds['pregraph']:.1f}s (" + ", ".join(
             f"{n} {t:.1f}" for n, t in res.phase_seconds.items()) +
@@ -1692,16 +1930,15 @@ def phase_e2e(cli, merge_path, lcs, wave, tourbus, smi: str, tmp: str):
             f"run's")
     check_wave_programs(tourbus, lcs, wave, pinches,
                         "the e2e fixtures on cuda")
-    log(f"[e2e] identity, chains and claim/apply kernel executions "
-        f"{wave_executions(lcs, wave)} = Tour-Bus waves ({pinches} a "
+    log(f"[e2e] identity, front, back, chains and claim/apply kernel "
+        f"executions {wave_executions(lcs, wave)}, the first three = "
+        f"Tour-Bus waves ({pinches} a "
         f"fixture; {tourbus.CAPTURES} captures, {tourbus.REPLAYS} "
         f"replays); standalone LCS kernel launches {lcs.LAUNCHES}")
     return {"card": smi, "phase_s": time.time() - t_phase,
-            "fixtures": fixtures, "merge_launches": merge_path.LAUNCHES,
-            "lcs_launches": lcs.LAUNCHES,
-            "identity_launches": lcs.IDENTITY_LAUNCHES,
-            "chains_launches": wave.CHAINS_LAUNCHES,
-            "claim_apply_launches": wave.CLAIM_APPLY_LAUNCHES}
+            "fixtures": fixtures,
+            **launch_numbers((merge_path.LAUNCHES, lcs.LAUNCHES,
+                              *wave_executions(lcs, wave)))}
 
 
 def main() -> int:
@@ -1782,7 +2019,7 @@ def main() -> int:
                "all_500k": launches, "options_500k_220k": flag_launches,
                "mesh_4_shards_500k": mesh_launches}
     e2e_launches = [e2e_numbers[f"{k}_launches"] for k in (
-        "merge", "lcs", "identity", "chains", "claim_apply")]
+        "merge", "lcs", *WAVE_ENTRIES)]
     lcs_wave = lcs_timing["synthetic"]["wave_1024x384"]
     log(json.dumps({"kernels": [{
         "name": "merge_path", "route": "cuda",
@@ -1828,8 +2065,9 @@ def main() -> int:
         "synthetic": lcs_timing["synthetic"]}, *({
         "name": name, "route": "cuda",
         "source": "soapdenovo_trans_tpu_torch/csrc/wave.cu",
-        "entry": entry, "replaces": replaces, "replaces_what": what,
-        "kernels_an_execution": parts,
+        "entry": f"{name}_launch", "replaces": replaces,
+        "replaces_what": what, "kernels_an_execution": parts,
+        "on_main_path": i < 5,
         "launches": launches[i],
         "launches_by_path": {
             **{path: n[i] for path, n in by_path.items()},
@@ -1838,25 +2076,46 @@ def main() -> int:
                            wave_real["max_abs_err"]),
         **{key: wave_real[name][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "host_us")},
-        "library_ms": None, "build_s": build_s["wave.cu"],
-        "wave_inputs": wave_real,
+        "library_ms": wave_real[name].get("library_ms"),
+        "build_s": build_s["wave.cu"],
+        "wave_inputs": {**{k: v for k, v in wave_real.items()
+                           if not isinstance(v, dict)},
+                        **wave_real[name]},
         "synthetic": {case: {**t[name], **{k: t[k] for k in (
-            "c", "m", "e", "a", "ok_rows")}}
+            "c", "m", "e", "a", "ok_rows", "merged", "n_cand")}}
             for case, t in wave_timing["synthetic"].items()}}
-        for name, entry, replaces, what, parts, i in (
-            ("chains", "chains_launch",
-             "soapdenovo_trans_tpu/graph/tourbus.py:174",
+        for name, replaces, what, parts, i in (
+            ("front", "soapdenovo_trans_tpu/graph/tourbus.py:140",
+             "steps 1-4 of the jitted _wave up to the identity check "
+             "(:140-219): the live arcs, the majority forest (a three-key "
+             "sort), the candidates and their order (a two-key sort, of "
+             "which the wave reads cand_cap rows), the walks, the meeting "
+             "point, the paths, their twins and the clash test; XLA device "
+             "code, not a Pallas kernel; library_ms is torch.topk of the "
+             "candidates' packed keys, the candidate order alone",
+             "front_forest_kernel, front_cand_kernel, front_select_kernel "
+             "(twice), front_count_kernel, front_scatter_kernel, "
+             "front_sort_kernel and chains_kernel", 3),
+            ("back", "soapdenovo_trans_tpu/graph/tourbus.py:221",
+             "the rest of the jitted _wave from the verdicts on "
+             "(:221-325): the counts, the claim arbitration, the positional "
+             "cover, the deletes, the coverage adds, the remap and the arc "
+             "rows' rewrite; and the pinch's failed update (:349-356); XLA "
+             "device code, not a Pallas kernel",
+             "back_head_kernel, then claim_kernel, apply_kernel and "
+             "arcs_kernel, which return at once when no row is ok", 4),
+            ("chains", "soapdenovo_trans_tpu/graph/tourbus.py:174",
              "steps 3-4 of the jitted _wave up to the identity check "
              "(:174-219): the backward walks, the first meeting point, the "
              "path interiors, their twins and the clash test; XLA device "
-             "code, not a Pallas kernel", "a memset and chains_kernel", 3),
-            ("claim_apply", "claim_apply_launch",
-             "soapdenovo_trans_tpu/graph/tourbus.py:232",
+             "code, not a Pallas kernel; off the main path since the front",
+             "a memset and chains_kernel", 5),
+            ("claim_apply", "soapdenovo_trans_tpu/graph/tourbus.py:232",
              "steps 5-6 of the jitted _wave (:232-325): the claim "
              "arbitration, the positional cover, the deletes, the coverage "
              "adds, the remap and the arc rows' rewrite; XLA device code, "
-             "not a Pallas kernel", "claim_kernel, apply_kernel and "
-             "arcs_kernel", 4)))]}))
+             "not a Pallas kernel; off the main path since the back",
+             "claim_kernel, apply_kernel and arcs_kernel", 6)))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,20 +12,21 @@ DIFF 2, M == 2 -> 9/3, M >= 3 -> 30/10 (:2072-2086).
 One wave, over flat arrays:
 
 1. majority forest: every live edge t picks prev[t] = its
-   heaviest-coverage predecessor (one sort over the arc table);
-2. every non-forest arc (u -> t) is a bubble candidate: walking
-   <= MAXNODELENGTH steps up the forest from t and from u and
+   heaviest-coverage predecessor;
+2. every non-forest arc (u -> t) is a bubble candidate, weakest first;
+   walking <= MAXNODELENGTH steps up the forest from t and from u and
    intersecting the two chains gives the fork s and the two paths
-   (``wave.chains``);
+   (steps 1-2 and the walks: ``wave.front``);
 3. the two paths' sequences are scored by LCS: accept iff LCS >= 90%
    of the longer and |lenA - lenB| <= DIFF (``lcs.identity_check``);
 4. accepted candidates claim their edges (scatter-min arbitration);
    claim-disjoint winners apply together: minority edges (and twins)
    deleted, their coverage added onto the covering majority edges,
-   their arcs remapped onto the majority path (``wave.claim_apply``).
+   their arcs remapped onto the majority path; a wave where nothing
+   merges retires its candidates into ``failed`` (``wave.back``).
 
-On a card each of the three named steps is a hand kernel; the forest
-and the candidate order are sorts.
+On a card each of the three named steps is a hand kernel, and a wave
+runs no sort.
 
 Waves repeat to a fixpoint like the reference's HasChanged loop
 (:2123).  Inside a wave the host reads nothing; ``pinch`` reads the
@@ -49,18 +50,17 @@ import torch
 from ..kernels import lcs, wave
 from . import arcs as arcs_mod
 from . import unitigs
-from .edge_clean import _gather_or, _scatter_true, rebuild_arcs
+from .edge_clean import rebuild_arcs
 
 SEQ_CAP = 384    # longest differing-path sequence considered per side
 CAND_CAP = 1024  # candidates arbitrated per wave (rest -> next wave)
-_BIG = 2**30
 
 CAPTURES = 0  # CUDA graphs captured since the last reset (one a pinch)
 REPLAYS = 0   # waves run as replays of a captured graph since the reset
 # (module, executions counter, capture counter) of each kernel of a wave
-_KERNELS = ((lcs, "IDENTITY_LAUNCHES", "IDENTITY_CAPTURED"),
-            (wave, "CHAINS_LAUNCHES", "CHAINS_CAPTURED"),
-            (wave, "CLAIM_APPLY_LAUNCHES", "CLAIM_APPLY_CAPTURED"))
+_KERNELS = ((wave, "FRONT_LAUNCHES", "FRONT_CAPTURED"),
+            (lcs, "IDENTITY_LAUNCHES", "IDENTITY_CAPTURED"),
+            (wave, "BACK_LAUNCHES", "BACK_CAPTURED"))
 
 
 def _params_for(merge_level: int) -> Tuple[int, int]:
@@ -81,102 +81,66 @@ def _lcs_scores(a, b, la, lb, cap: int):
     return lcs.lcs_scores(a, b, la, lb, cap)
 
 
-def _majority_forest(aset, varc, cvg_f, e_cap: int):
-    """prev[t] = the live predecessor of t with the highest coverage
-    (lowest from-edge on ties): a sort on (to, -cvg, from), run as two
-    stable passes because the three keys do not fit one int64."""
-    to_k = torch.where(varc, aset.to_ed, _BIG)
-    low = torch.where(varc, -cvg_f, 0) * (1 << 32) + \
-        torch.where(varc, aset.from_ed, _BIG)
-    o = torch.sort(low, stable=True).indices
-    o = o[torch.sort(to_k[o], stable=True).indices]
-    s_to, s_from = to_k[o], aset.from_ed[o]
-    head = s_to < _BIG
-    head[1:] &= s_to[1:] != s_to[:-1]
-    prev = torch.full((e_cap + 1,), -1, dtype=torch.int64,
-                      device=s_to.device)
-    prev[torch.where(head, s_to, e_cap)] = s_from
-    return prev[:e_cap]
-
-
-def _wave(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet, failed,
-          m_max: int, diff: int, seq_cap: int, cand_cap: int):
-    e_cap = eg.length.shape[0]
-    dev = eg.length.device
-    me = torch.arange(e_cap, device=dev)
-    live_e = (me < eg.n_edges) & ~eg.deleted
-    varc = (aset.from_ed >= 0) & (aset.to_ed >= 0) & (aset.mult > 0) & \
-        _gather_or(live_e, aset.from_ed, False) & \
-        _gather_or(live_e, aset.to_ed, False)
-
-    # 1. majority forest
-    cvg_f = _gather_or(eg.cvg, aset.from_ed, 0)
-    prev = _majority_forest(aset, varc, cvg_f, e_cap)
-
-    # 2. candidates: non-forest arcs not yet examined-and-rejected
-    # since the last graph change, weakest minority first; the arc row
-    # is the last key, so equal-coverage candidates keep row order
-    tree = _gather_or(prev, aset.to_ed, -1) == aset.from_ed
-    cand = varc & ~tree & ~failed
-    n_cand = cand.sum()
-    order = torch.sort(torch.where(cand, cvg_f, _BIG), stable=True).indices
-    order = order[torch.sort((~cand[order]).to(torch.uint8),
-                             stable=True).indices]
-    cid_arc = order[:cand_cap]
-    cmask = cand[cid_arc]
-    u = torch.where(cmask, aset.from_ed[cid_arc], -1)
-    t0 = torch.where(cmask, aset.to_ed[cid_arc], -1)
-
-    # 3-4. backward chains up the forest, their first meeting point, the
-    # path interiors (fork->join order), their twins and the clash test:
-    # one launch of the chains kernel on the card
-    maj, mnr, tw_maj, tw_mnr, _s, ends, found, n_backtracked = \
-        wave.chains(prev, u, t0, cmask, eg.twin, m_max)
+def _wave_parts(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet, failed,
+                mark, m_max: int, diff: int, seq_cap: int, cand_cap: int):
+    """front -> identity check -> back on one wave's state; the back
+    marks ``mark`` (``failed`` or a copy of it) when nothing merges.
+    Returns (counts, (cvg2, deleted2, new_f, new_t, new_mult), cid_arc,
+    cmask, ok); the five are undefined on a card when counts[0] == 0."""
+    # 1-4. live arcs, majority forest, candidates (weakest coverage
+    # first, ties in row order), the backward chains up the forest, their
+    # first meeting point, the path interiors (fork->join order), their
+    # twins and the clash test: the front's kernels on the card
+    (cid_arc, cmask, _u, _t0, maj, mnr, tw_maj, tw_mnr, ends, found,
+     n_backtracked, n_cand) = wave.front(
+        eg.n_edges, eg.deleted, eg.cvg, eg.twin, aset.from_ed, aset.to_ed,
+        aset.mult, failed, m_max, cand_cap)
 
     # path lengths, the length gate, the LCS of the two path sequences
     # and the 90% verdict: one launch of the identity kernel on the card
     len_a, len_b, compared, ok, _ = lcs.identity_check(
         maj, mnr, found, eg.length, eg.seq_off, eg.seq_pool, diff, seq_cap)
-    n_compared = compared.sum()
 
-    # 5-6. claim arbitration (edge-disjoint winners, the lowest (minority
-    # coverage, candidate index) claim wins) and apply (minority nodes and
-    # twins deleted, coverage folded positionally, arcs remapped onto the
-    # covering majority node): the claim/apply kernel on the card
-    cvg2, deleted2, new_f, new_t, new_mult, n_merged = wave.claim_apply(
+    # 5-6. the counts; claim arbitration (edge-disjoint winners, the
+    # lowest (minority coverage, candidate index) claim wins) and apply
+    # (minority nodes and twins deleted, coverage folded positionally,
+    # arcs remapped onto the covering majority node); with no ok row, the
+    # examined candidates retired into ``mark``: the back's kernels
+    counts, *outs = wave.back(
         maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, eg.cvg, eg.length,
-        eg.twin, eg.deleted, aset.from_ed, aset.to_ed, aset.mult)
+        eg.twin, eg.deleted, aset.from_ed, aset.to_ed, aset.mult, compared,
+        cmask, cid_arc, n_cand, n_backtracked, cand_cap, mark)
+    return counts, outs, cid_arc, cmask, ok
 
-    overflow = (n_cand - cand_cap).clamp(min=0)
+
+def _wave(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet, failed,
+          m_max: int, diff: int, seq_cap: int, cand_cap: int):
+    """One wave as the JAX ``_wave`` gives it, ``failed`` left as it is:
+    (cvg2, deleted2, new_f, new_t, new_mult, n_backtracked, n_compared,
+    n_merged, overflow, cid_arc, fail_mark).  On a card the first five
+    are undefined when n_merged == 0 (the back skips them)."""
+    counts, outs, cid_arc, cmask, ok = _wave_parts(
+        eg, aset, failed, failed.clone(), m_max, diff, seq_cap, cand_cap)
     # examined candidates rejected by the checks themselves (not by
-    # claim arbitration — those must retry) are reported so `pinch`
-    # can skip them until the graph next changes.  When n_merged == 0
-    # no candidate was `ok` at all (the globally minimal (rank, cid)
-    # ok-candidate always wins every edge it claims), so marking all
-    # examined candidates failed is exact.
+    # claim arbitration — those must retry); a pinch retires them when
+    # nothing merged
     fail_mark = cmask & ~ok
-    return (cvg2, deleted2, new_f, new_t, new_mult,
-            n_backtracked, n_compared, n_merged, overflow,
-            cid_arc, fail_mark)
+    return (*outs, counts[2], counts[3], counts[0], counts[1], cid_arc,
+            fail_mark)
 
 
 def _wave_step(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet, failed,
                m_max: int, diff: int, seq_cap: int, cand_cap: int):
-    """One wave on a pinch's buffers, with no host read: ``_wave``, then
-    the ``failed`` update of an unproductive wave (its examined
-    candidates that the checks rejected), in place and gated on the
-    device by ``n_merged == 0``; a productive wave's ``failed`` is
-    cleared by ``WaveProgram.apply``.  Returns (counts, cvg2, deleted2,
-    new_f, new_t, new_mult); counts is (4,) int64: merged, overflow,
-    backtracked, compared."""
-    (cvg2, deleted2, nf, nt, nm, n_back, n_cmp, n_merged, overflow,
-     cid_arc, fail_mark) = _wave(eg, aset, failed, m_max, diff, seq_cap,
-                                 cand_cap)
-    a_cap = failed.shape[0]
-    failed |= _scatter_true(a_cap, torch.where(
-        fail_mark & (n_merged == 0), cid_arc, a_cap))
-    return (torch.stack([n_merged, overflow, n_back, n_cmp]), cvg2,
-            deleted2, nf, nt, nm)
+    """One wave on a pinch's buffers, with no host read: front, identity
+    check and back, the back updating ``failed`` in place when nothing
+    merged (its examined candidates that the checks rejected); a
+    productive wave's ``failed`` is cleared by ``WaveProgram.apply``.
+    Returns (counts, cvg2, deleted2, new_f, new_t, new_mult); counts is
+    (4,) int64: merged, overflow, backtracked, compared.  On a card the
+    other five are undefined when counts[0] == 0."""
+    counts, outs, *_ = _wave_parts(eg, aset, failed, failed, m_max, diff,
+                                   seq_cap, cand_cap)
+    return (counts, *outs)
 
 
 @contextlib.contextmanager
@@ -206,9 +170,9 @@ class WaveProgram:
     are buffers updated in place.
 
     On a card the first wave runs eagerly, with any host synchronisation
-    an error: a real wave, and the warm-up (the kernel build, the sorts'
-    workspaces, the identity kernel's shared-memory attribute; the
-    claim/apply kernel's scratch is reserved at construction).  The
+    an error: a real wave, and the warm-up (the kernel build, the
+    identity kernel's shared-memory attribute; the front's and the
+    back's scratch are reserved at construction).  The
     second is captured once into a ``torch.cuda.CUDAGraph`` and every
     later wave replays it (captured work does not run at capture, so the
     captured wave is a replay too); a capture or replay that fails
@@ -230,7 +194,8 @@ class WaveProgram:
         # the kernels' launches a replay executes, as _KERNELS lists them
         self.replayed = [0] * len(_KERNELS)
         if self.dev.type == "cuda":  # before any capture; kept with the graph
-            self.scratch = wave.claim_scratch(self.dev, eg.cvg.shape[0])
+            self.scratch = (wave.claim_scratch(self.dev, eg.cvg.shape[0]),
+                            wave.forest_scratch(self.dev, eg.cvg.shape[0]))
 
     def _step(self):
         return _wave_step(self.eg, self.aset, self.failed, *self.args)

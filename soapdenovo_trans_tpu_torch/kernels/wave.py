@@ -1,26 +1,33 @@
-"""The Hopper kernels of the Tour-Bus wave's candidate body: the chain
-walk before the identity check (``chains``) and the claim arbitration and
-apply after it (``claim_apply``).
+"""The Hopper kernels of the Tour-Bus wave around its identity check: the
+wave's front (``front``: from the arc table to the candidates' chains)
+and its back (``back``: from the verdicts to the counts and the
+``failed`` mask), and the two entries they grew from, ``chains`` and
+``claim_apply``, which the wave no longer calls.
 
-``chains`` replaces steps 3-4 of the JAX package's jitted ``_wave`` up to
-the identity check (``soapdenovo_trans_tpu/graph/tourbus.py:174-219``: the
+``front`` replaces steps 1-4 of the JAX package's jitted ``_wave`` up to
+the identity check (``soapdenovo_trans_tpu/graph/tourbus.py:140-219``:
+the live arcs, the majority forest, the candidates and their order, the
 backward walks, the first meeting point, the path interiors, their twins
-and the clash test); ``claim_apply`` replaces steps 5-6 (:232-325: the
-claim arbitration, the positional cover, the deletes, the coverage adds,
-the remap and the rewrite of the arc rows).  XLA fuses both into the wave
-program (device code, not Pallas kernels); the port ran them as some 320
-small launches a wave.  The CUDA source of both is ``csrc/wave.cu`` in
-this package, compiled for ``sm_90a`` with ``nvcc`` at first use into
-``_build/`` and loaded with ``ctypes`` (``kernels/_nvcc.py``).
+and the clash test); ``back`` replaces the rest (:221-325 from the
+verdicts on: the counts, the claim arbitration, the positional cover,
+the deletes, the coverage adds, the remap and the rewrite of the arc
+rows) and the pinch's ``failed`` update (:349-356).  ``chains`` is
+steps 3-4 alone (:174-219), ``claim_apply`` steps 5-6 alone (:232-325).
+XLA fuses all of it into the wave program (device code, not Pallas
+kernels).  The CUDA source is ``csrc/wave.cu`` in this package, compiled
+for ``sm_90a`` with ``nvcc`` at first use into ``_build/`` and loaded with
+``ctypes`` (``kernels/_nvcc.py``).
 
-Each wrapper launches its kernel for CUDA tensors and runs its plain
-PyTorch version (``chains_plain``, ``claim_apply_plain``: the wave's own
-code, moved here) only for CPU tensors.  Both may be captured into a CUDA
-graph (the Tour-Bus wave is, ``graph/tourbus.WaveProgram``): their
-launches read nothing back, copy no host value to the card and set no
-attribute, and their counters count executions.  ``claim_apply`` keeps its
-arbitration keys in a scratch array of each card (``claim_scratch``),
-allocated outside any capture and empty between calls.
+Each wrapper launches its kernels for CUDA tensors and runs its plain
+PyTorch version (``front_plain``, ``back_plain``, ``chains_plain``,
+``claim_apply_plain``: the wave's own code, moved here) only for CPU
+tensors.  All may be captured into a CUDA graph (the Tour-Bus wave is,
+``graph/tourbus.WaveProgram``): their launches read nothing back, copy no
+host value to the card and set no attribute, and their counters count
+executions.  The front keeps its majority forest and the back its
+arbitration keys in scratch arrays of each card (``forest_scratch``,
+``claim_scratch``), allocated outside any capture and empty between
+calls.
 """
 
 from __future__ import annotations
@@ -37,19 +44,25 @@ from .lcs import _gather2, _gather_or
 
 SOURCE = os.path.join(_nvcc.CSRC, "wave.cu")
 MAX_M = 30  # node slots a path: -M 3's MAXNODELENGTH (its shared memory)
+MAX_CAND = 4096  # candidate rows a front takes (its one-block sort)
 EMPTY = 2**63 - 1  # an unclaimed entry of the claim scratch
 _BIG = 2**30
 
-# executions of each kernel since the last reset: each launch outside a
+# executions of each entry since the last reset: each launch outside a
 # CUDA graph capture, and each replay of a graph that holds one (the
-# graph's owner adds them, ``graph/tourbus.WaveProgram``); a
-# ``claim_apply`` execution is its three kernels
+# graph's owner adds them, ``graph/tourbus.WaveProgram``); a ``front``
+# execution is its eight kernels, a ``back`` its four, a ``claim_apply``
+# its three
+FRONT_LAUNCHES = 0
+FRONT_CAPTURED = 0  # front launches recorded into CUDA graphs
+BACK_LAUNCHES = 0
+BACK_CAPTURED = 0  # back launches recorded into CUDA graphs
 CHAINS_LAUNCHES = 0
 CHAINS_CAPTURED = 0  # chains launches recorded into CUDA graphs
 CLAIM_APPLY_LAUNCHES = 0
 CLAIM_APPLY_CAPTURED = 0  # claim_apply launches recorded into CUDA graphs
 _LIB = None
-_SCRATCH = {}  # card index -> its claim scratch
+_SCRATCH = {}  # (card index, what) -> that scratch of the card
 
 
 def build() -> str:
@@ -70,35 +83,63 @@ def _load():
         lib.claim_apply_launch.argtypes = ([ctypes.c_void_p] * 23
                                            + [ctypes.c_longlong] * 4
                                            + [ctypes.c_void_p])
-        lib.wave_max_m.restype = lib.wave_empty.restype = ctypes.c_longlong
-        if lib.wave_max_m() != MAX_M or lib.wave_empty() != EMPTY:
+        lib.front_launch.restype = ctypes.c_int
+        lib.front_launch.argtypes = ([ctypes.c_void_p] * 21
+                                     + [ctypes.c_longlong] * 5
+                                     + [ctypes.c_void_p])
+        lib.back_launch.restype = ctypes.c_int
+        lib.back_launch.argtypes = ([ctypes.c_void_p] * 30
+                                    + [ctypes.c_longlong] * 5
+                                    + [ctypes.c_void_p])
+        lib.front_work_bytes.restype = ctypes.c_longlong
+        lib.front_work_bytes.argtypes = [ctypes.c_longlong] * 3
+        for fn in (lib.wave_max_m, lib.wave_empty, lib.wave_max_cand):
+            fn.restype = ctypes.c_longlong
+        if (lib.wave_max_m(), lib.wave_empty(), lib.wave_max_cand()) != \
+                (MAX_M, EMPTY, MAX_CAND):
             raise RuntimeError("csrc/wave.cu and kernels/wave.py disagree "
-                               "on the node slots or the empty entry")
+                               "on the node slots, the empty entry or the "
+                               "candidate rows")
         _LIB = lib
     return _LIB
 
 
-def claim_scratch(dev, e: int):
-    """The claim scratch of card ``dev``: at least e int64 entries, every
-    one EMPTY between calls (each ``claim_apply`` resets what it claimed).
-    Allocated at first need and replaced by a larger one when a graph
-    outgrows it, never inside a CUDA graph capture (``WaveProgram``
-    reserves it before its first wave and keeps a reference, so a graph
-    it captured keeps its scratch).  The calls on one card share it, so
-    they must not overlap: the wave runs them on one stream."""
+def _scratch(dev, e: int, fill: int, what: str):
+    """The ``what`` scratch of card ``dev``: at least e int64 entries, all
+    ``fill`` between calls.  Allocated at first need and replaced by a
+    larger one when a graph outgrows it, never inside a CUDA graph
+    capture."""
     dev = torch.device(dev)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    have = _SCRATCH.get(dev.index)
+    have = _SCRATCH.get((dev.index, what))
     if have is not None and have.shape[0] >= e:
         return have
     if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(f"claim scratch of {e} entries first asked for "
+        raise RuntimeError(f"{what} scratch of {e} entries first asked for "
                            f"inside a CUDA graph capture on {dev}")
-    scratch = torch.full((max(e, 1),), EMPTY, dtype=torch.int64,
-                         device=dev)
-    _SCRATCH[dev.index] = scratch
+    scratch = torch.full((max(e, 1),), fill, dtype=torch.int64, device=dev)
+    _SCRATCH[(dev.index, what)] = scratch
     return scratch
+
+
+def claim_scratch(dev, e: int):
+    """The claim scratch of card ``dev``: at least e int64 entries, every
+    one EMPTY between calls (each ``claim_apply`` or ``back`` resets what
+    it claimed).  Allocated at first need and replaced by a larger one
+    when a graph outgrows it, never inside a CUDA graph capture
+    (``WaveProgram`` reserves it before its first wave and keeps a
+    reference, so a graph it captured keeps its scratch).  The calls on
+    one card share it, so they must not overlap: the wave runs them on
+    one stream."""
+    return _scratch(dev, e, EMPTY, "claim")
+
+
+def forest_scratch(dev, e: int):
+    """The forest scratch of card ``dev``: at least e entries (uint64 keys
+    in int64), every one 0 between calls (each ``front`` zeroes what it
+    wrote).  Allocated, shared and kept as ``claim_scratch``."""
+    return _scratch(dev, e, 0, "forest")
 
 
 def _check(xs, int64, flags, rows, m_max: int) -> None:
@@ -369,3 +410,224 @@ def claim_apply_plain(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b,
     new_t = torch.where(created_loop, -1, new_t)
     new_mult = torch.where(new_f >= 0, mult, 0)
     return cvg2, deleted2, new_f, new_t, new_mult, n_merged
+
+
+def front(n_edges: int, deleted, cvg, twin, from_ed, to_ed, mult, failed,
+          m_max: int, cand_cap: int):
+    """The Tour-Bus wave's front, steps 1-4 up to the identity check:
+    returns (cid_arc, cmask, u, t0, maj, mnr, tw_maj, tw_mnr, ends, found,
+    n_backtracked, n_cand).
+
+    deleted (E,) bool, cvg and twin (E,) int64, an ``EdgeGraph``'s, whose
+    first n_edges edges are in use; from_ed, to_ed, mult (A,) int64 arc
+    rows (edge ids -1..E-1), failed (A,) bool.  The live arcs (both edges
+    in use and not deleted, mult > 0) give the majority forest: each
+    edge's live predecessor with the highest coverage, the lowest
+    from-edge on ties.  The candidates are the live arcs outside the
+    forest and not failed, n_cand of them; cid_arc holds the first
+    C = min(cand_cap, A) rows of the order that puts the candidates first,
+    by (coverage of the from-edge, row), and the rest in row order; cmask
+    marks its candidates, u and t0 their from- and to-edges (-1 where not
+    a candidate).  maj, mnr, tw_maj, tw_mnr (C, m_max), ends (C, 4), found
+    (C,) and n_backtracked are ``chains`` on that forest and those rows.
+    The kernel needs coverage within int32 (the JAX package's type) and
+    edge ids below 2^31; cand_cap <= MAX_CAND, m_max <= MAX_M."""
+    global FRONT_LAUNCHES, FRONT_CAPTURED
+    e, a = cvg.shape[0], from_ed.shape[0]
+    xs = (deleted, cvg, twin, from_ed, to_ed, mult, failed)
+    _check(xs, (cvg, twin, from_ed, to_ed, mult), (deleted, failed),
+           (("deleted", deleted, (e,)), ("cvg", cvg, (e,)),
+            ("twin", twin, (e,)), ("from_ed", from_ed, (a,)),
+            ("to_ed", to_ed, (a,)), ("mult", mult, (a,)),
+            ("failed", failed, (a,))), m_max)
+    if not 0 <= cand_cap <= MAX_CAND:
+        raise ValueError(f"cand_cap {cand_cap} outside the kernel's "
+                         f"0..{MAX_CAND}")
+    dev = cvg.device
+    if dev.type == "cpu":
+        return front_plain(n_edges, *xs, m_max, cand_cap)
+    if dev.type != "cuda":
+        raise ValueError(f"no wave kernel for device {dev}")
+    lib = _load()
+    c = min(cand_cap, a)
+    with torch.cuda.device(dev):
+        forest = forest_scratch(dev, e)
+        work = torch.empty(lib.front_work_bytes(a, e, c), dtype=torch.uint8,
+                           device=dev)
+        rows = torch.empty((3, c), dtype=torch.int64, device=dev)
+        flags = torch.empty((2, c), dtype=torch.bool, device=dev)
+        longs = torch.empty((4, c, m_max), dtype=torch.int64, device=dev)
+        ends = torch.empty((c, 4), dtype=torch.int64, device=dev)
+        counts = torch.empty(2, dtype=torch.int64, device=dev)
+        cid_arc, u, t0 = rows
+        cmask, found = flags
+        err = lib.front_launch(
+            *(x.data_ptr() for x in xs), forest.data_ptr(), work.data_ptr(),
+            cid_arc.data_ptr(), cmask.data_ptr(), u.data_ptr(),
+            t0.data_ptr(), *(x.data_ptr() for x in longs), ends.data_ptr(),
+            found.data_ptr(), counts[0].data_ptr(), counts[1].data_ptr(),
+            n_edges, e, a, c, m_max,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"front kernel launch failed: CUDA error "
+                               f"{err}")
+        if torch.cuda.is_current_stream_capturing():
+            FRONT_CAPTURED += 1
+        else:
+            FRONT_LAUNCHES += 1
+    return (cid_arc, cmask, u, t0, *longs, ends, found, counts[0], counts[1])
+
+
+def _majority_forest(from_ed, to_ed, varc, cvg_f, e_cap: int):
+    """prev[t] = the live predecessor of t with the highest coverage
+    (lowest from-edge on ties): a sort on (to, -cvg, from), run as two
+    stable passes because the three keys do not fit one int64.  The
+    second key, (2^31 - 1 - cvg)·2^31 + from, fits one for every int32
+    coverage and every from-edge below 2^31."""
+    to_k = torch.where(varc, to_ed, _BIG)
+    low = torch.where(varc, (2**31 - 1) - cvg_f, 0) * (1 << 31) + \
+        torch.where(varc, from_ed, _BIG)
+    o = torch.sort(low, stable=True).indices
+    o = o[torch.sort(to_k[o], stable=True).indices]
+    s_to, s_from = to_k[o], from_ed[o]
+    head = s_to < _BIG
+    head[1:] &= s_to[1:] != s_to[:-1]
+    prev = torch.full((e_cap + 1,), -1, dtype=torch.int64,
+                      device=s_to.device)
+    prev[torch.where(head, s_to, e_cap)] = s_from
+    return prev[:e_cap]
+
+
+def candidates_plain(n_edges: int, deleted, cvg, from_ed, to_ed, mult,
+                     failed, cand_cap: int):
+    """Steps 1-2 of the wave in plain PyTorch, as the JAX wave computes
+    them: returns (prev, cid_arc, cmask, u, t0, n_cand), the majority
+    forest and ``front``'s candidate rows."""
+    e_cap = cvg.shape[0]
+    dev = cvg.device
+    me = torch.arange(e_cap, device=dev)
+    live_e = (me < n_edges) & ~deleted
+    varc = (from_ed >= 0) & (to_ed >= 0) & (mult > 0) & \
+        _gather_or(live_e, from_ed, False) & \
+        _gather_or(live_e, to_ed, False)
+
+    # 1. majority forest
+    cvg_f = _gather_or(cvg, from_ed, 0)
+    prev = _majority_forest(from_ed, to_ed, varc, cvg_f, e_cap)
+
+    # 2. candidates: non-forest arcs not yet examined-and-rejected
+    # since the last graph change, weakest minority first; the arc row
+    # is the last key, so equal-coverage candidates keep row order
+    tree = _gather_or(prev, to_ed, -1) == from_ed
+    cand = varc & ~tree & ~failed
+    n_cand = cand.sum()
+    order = torch.sort(torch.where(cand, cvg_f, _BIG), stable=True).indices
+    order = order[torch.sort((~cand[order]).to(torch.uint8),
+                             stable=True).indices]
+    cid_arc = order[:cand_cap]
+    cmask = cand[cid_arc]
+    u = torch.where(cmask, from_ed[cid_arc], -1)
+    t0 = torch.where(cmask, to_ed[cid_arc], -1)
+    return prev, cid_arc, cmask, u, t0, n_cand
+
+
+def front_plain(n_edges: int, deleted, cvg, twin, from_ed, to_ed, mult,
+                failed, m_max: int, cand_cap: int):
+    """``front`` in plain PyTorch, as the JAX wave computes it: the forest
+    and the candidates (``candidates_plain``), then ``chains_plain``."""
+    prev, cid_arc, cmask, u, t0, n_cand = candidates_plain(
+        n_edges, deleted, cvg, from_ed, to_ed, mult, failed, cand_cap)
+    maj, mnr, tw_maj, tw_mnr, _s, ends, found, n_backtracked = \
+        chains_plain(prev, u, t0, cmask, twin, m_max)
+    return (cid_arc, cmask, u, t0, maj, mnr, tw_maj, tw_mnr, ends, found,
+            n_backtracked, n_cand)
+
+
+def back(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg, length,
+         twin, deleted, from_ed, to_ed, mult, compared, cmask, cid_arc,
+         n_cand, n_backtracked, cand_cap: int, failed):
+    """The Tour-Bus wave's back, from the verdicts on: returns (counts,
+    cvg2, deleted2, new_f, new_t, new_mult).
+
+    ``claim_apply``'s 15 inputs, then compared, cmask (C,) bool and
+    cid_arc (C,) int64 as the identity check and ``front`` give them,
+    n_cand and n_backtracked (0-dim int64), cand_cap and the pinch's
+    failed (A,) bool.  counts is (4,) int64: merged, overflow
+    (max(n_cand - cand_cap, 0)), backtracked and compared.  When no row
+    is ok nothing merges (counts[0] == 0) and the back sets
+    failed[cid_arc[c]] in place for every cmask row; failed is never
+    cleared here.  cvg2, deleted2, new_f, new_t and new_mult are
+    ``claim_apply``'s when counts[0] > 0 and UNDEFINED when it is 0 (the
+    kernels skip them; no caller reads them then: the JAX pinch,
+    ``WaveProgram.apply``); the plain version writes them always."""
+    global BACK_LAUNCHES, BACK_CAPTURED
+    c, m = maj.shape if maj.dim() == 2 else (-1, -1)
+    e, a = cvg.shape[0], from_ed.shape[0]
+    xs = (maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg, length,
+          twin, deleted, from_ed, to_ed, mult)
+    more = (compared, cmask, cid_arc, n_cand, n_backtracked, failed)
+    _check(xs + more, xs[:5] + xs[6:11] + xs[12:] + more[2:5],
+           (ok, deleted, compared, cmask, failed),
+           (("maj", maj, (c, m)), ("mnr", mnr, (c, m)),
+            ("tw_maj", tw_maj, (c, m)), ("tw_mnr", tw_mnr, (c, m)),
+            ("ends", ends, (c, 4)), ("ok", ok, (c,)),
+            ("len_a", len_a, (c,)), ("len_b", len_b, (c,)),
+            ("cvg", cvg, (e,)), ("length", length, (e,)),
+            ("twin", twin, (e,)), ("deleted", deleted, (e,)),
+            ("from_ed", from_ed, (a,)), ("to_ed", to_ed, (a,)),
+            ("mult", mult, (a,)), ("compared", compared, (c,)),
+            ("cmask", cmask, (c,)), ("cid_arc", cid_arc, (c,)),
+            ("n_cand", n_cand, ()), ("n_backtracked", n_backtracked, ()),
+            ("failed", failed, (a,))), m)
+    dev = maj.device
+    if dev.type == "cpu":
+        return back_plain(*xs, *more[:5], cand_cap, failed)
+    if dev.type != "cuda":
+        raise ValueError(f"no wave kernel for device {dev}")
+    lib = _load()
+    with torch.cuda.device(dev):
+        scratch = claim_scratch(dev, e)
+        remap = torch.empty(e, dtype=torch.int64, device=dev)
+        cvg2 = torch.empty(e, dtype=torch.int64, device=dev)
+        deleted2 = torch.empty(e, dtype=torch.bool, device=dev)
+        arcs = torch.empty((3, a), dtype=torch.int64, device=dev)
+        counts = torch.empty(4, dtype=torch.int64, device=dev)
+        gate = torch.empty(1, dtype=torch.int32, device=dev)
+        err = lib.back_launch(
+            *(x.data_ptr() for x in xs + more), scratch.data_ptr(),
+            remap.data_ptr(), cvg2.data_ptr(), deleted2.data_ptr(),
+            *(x.data_ptr() for x in arcs), counts.data_ptr(),
+            gate.data_ptr(), c, m, e, a, cand_cap,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"back kernel launch failed: CUDA error "
+                               f"{err}")
+        if torch.cuda.is_current_stream_capturing():
+            BACK_CAPTURED += 1
+        else:
+            BACK_LAUNCHES += 1
+    return (counts, cvg2, deleted2, *arcs)
+
+
+def back_plain(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg,
+               length, twin, deleted, from_ed, to_ed, mult, compared, cmask,
+               cid_arc, n_cand, n_backtracked, cand_cap: int, failed):
+    """``back`` in plain PyTorch: ``claim_apply_plain``, the ``failed``
+    update of a wave that merged nothing, and the counts; every output
+    written."""
+    cvg2, deleted2, new_f, new_t, new_mult, n_merged = claim_apply_plain(
+        maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg, length, twin,
+        deleted, from_ed, to_ed, mult)
+    overflow = (n_cand - cand_cap).clamp(min=0)
+    # examined candidates rejected by the checks themselves (not by
+    # claim arbitration — those must retry) are retired until the graph
+    # next changes.  When n_merged == 0 no candidate was `ok` at all
+    # (the globally minimal (rank, cid) ok-candidate always wins every
+    # edge it claims), so marking all examined candidates failed is
+    # exact.
+    a_cap = failed.shape[0]
+    failed |= _scatter_true(a_cap, torch.where(
+        cmask & ~ok & (n_merged == 0), cid_arc, a_cap))
+    return (torch.stack([n_merged, overflow, n_backtracked,
+                         compared.sum()]),
+            cvg2, deleted2, new_f, new_t, new_mult)

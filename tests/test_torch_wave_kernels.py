@@ -1,15 +1,25 @@
-"""The Tour-Bus wave's candidate body (``kernels/wave.py``: ``chains``
-before the identity check, ``claim_apply`` after it), on the CPU.
+"""The Tour-Bus wave around its identity check (``kernels/wave.py``:
+``front`` and ``back``, and the first entries ``chains`` and
+``claim_apply``), on the CPU.
 
-Held here: the port's ``_wave``, which goes through both wrappers (their
-plain versions on the CPU), equals the JAX ``_wave`` on every wave of a
-pinch at -M 1, 2 and 3, with 8 and 1,024 candidates a wave, on two
-fixtures, all 11 outputs; and ``chains_plain`` and ``claim_apply_plain``
-equal a numpy loop written here that takes one candidate at a time, on
-the named cases of tests/test_torch_wave_kernels_gpu.py (ties at the
-meeting point, clash, palindrome, not found, equal rank, a shared edge,
-the cover fallback, a created self-loop beside a genuine one, coverage at
-the 16,000 cap, padded rows).  Exact comparison (tolerance 0)."""
+Held here: the port's ``_wave``, which goes through the front, the
+identity check and the back (their plain versions on the CPU), equals
+the JAX ``_wave`` on every wave of a pinch at -M 1, 2 and 3, with 8 and
+1,024 candidates a wave, on two fixtures, all 11 outputs; ``front_plain``
+equals a numpy loop written here (each node's live predecessor by
+(coverage, -from-edge), the candidates by (coverage, row), then the
+chains) on the front cases of tests/test_torch_wave_kernels_gpu.py (equal
+coverages, few values, int32-limit coverages, duplicate and padded rows
+with deleted edges and failed rows, no candidate, fewer, as many and
+more candidates than cand_cap); ``back_plain``'s counts and ``failed``
+update equal those of the wave step before the back (claim_apply_plain,
+then the mark and the counts), with ok rows and without; and
+``chains_plain`` and ``claim_apply_plain`` equal a numpy loop that takes
+one candidate at a time, on the named cases of the same file (ties at
+the meeting point, clash, palindrome, not found, equal rank, a shared
+edge, the cover fallback, a created self-loop beside a genuine one,
+coverage at the 16,000 cap, padded rows).  Exact comparison (tolerance
+0)."""
 
 import functools
 
@@ -29,8 +39,11 @@ from soapdenovo_trans_tpu_torch.kernels import wave
 from tests.test_bubbles import _multinode_bubble_reads, build
 from tests.test_torch_tourbus import _many_bubbles
 from tests.test_torch_wave_kernels_gpu import (CHAIN_CASES, CLAIM_CASES,
-                                               MAX_COV, chains_inputs,
-                                               claim_inputs, wave_case)
+                                               FRONT_CASES, MAX_COV,
+                                               back_inputs, chains_inputs,
+                                               check_front_case,
+                                               claim_inputs, front_case,
+                                               front_inputs, wave_case)
 
 
 @pytest.fixture(autouse=True)
@@ -152,6 +165,38 @@ def claim_apply_loop(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg,
                                "fallbacks": fallbacks})
 
 
+def front_loop(n_edges, deleted, cvg, twin, from_ed, to_ed, mult, failed,
+               m, cand_cap):
+    """``front`` one row at a time: each node's live predecessor with the
+    greatest (coverage, -from-edge), the candidates sorted by (coverage,
+    row) and the other rows after them in row order, then
+    ``chains_loop``."""
+    e, a = len(cvg), len(from_ed)
+    live = [i < n_edges and not deleted[i] for i in range(e)]
+    varc = [mult[i] > 0 and 0 <= from_ed[i] < e and 0 <= to_ed[i] < e
+            and live[from_ed[i]] and live[to_ed[i]] for i in range(a)]
+    best = {}
+    for i in np.flatnonzero(varc):
+        f, t = int(from_ed[i]), int(to_ed[i])
+        best[t] = max(best.get(t, (int(cvg[f]), -f)), (int(cvg[f]), -f))
+    prev = np.full(e, -1)
+    for t, (_cv, neg_f) in best.items():
+        prev[t] = -neg_f
+    cand = np.array([varc[i] and prev[to_ed[i]] != from_ed[i]
+                     and not failed[i] for i in range(a)], bool)
+    order = [i for _cv, i in sorted((int(cvg[from_ed[i]]), i)
+                                    for i in np.flatnonzero(cand))]
+    order += [i for i in range(a) if not cand[i]]
+    cid_arc = np.array(order[:min(cand_cap, a)], np.int64)
+    cmask = cand[cid_arc]
+    u = np.where(cmask, from_ed[cid_arc], -1)
+    t0 = np.where(cmask, to_ed[cid_arc], -1)
+    maj, mnr, tw_maj, tw_mnr, _s, ends, found, n_back = chains_loop(
+        prev, u, t0, cmask, twin, m)
+    return (cid_arc, cmask, u, t0, maj, mnr, tw_maj, tw_mnr, ends, found,
+            n_back, int(cand.sum()))
+
+
 def _span_holds(nodes, length, y, scale) -> bool:
     """Whether node y's span along the path ``nodes`` holds ``scale``."""
     cum = 0
@@ -225,6 +270,50 @@ def test_claim_apply_plain_matches_loop(name, m):
         assert (new_f[genuine] >= 0).all()  # kept
     if name == "cover_fallback":  # a winner's node no majority span holds
         assert want[6]["fallbacks"] > 0
+
+
+@pytest.mark.parametrize("cap", [8, 1024])
+@pytest.mark.parametrize("name", FRONT_CASES)
+def test_front_plain_matches_loop(name, cap):
+    m = 3
+    xs = front_inputs(front_case(name, cap, m, 31), "cpu")
+    got = wave.front(*xs, m, cap)
+    want = front_loop(xs[0], *(x.numpy() for x in xs[1:]), m, cap)
+    _assert_equal(got, want)
+    check_front_case(name, cap, want[11])
+    if name not in ("none", "below", "at"):
+        assert want[11] > cap  # the select cut the candidates
+    if name in ("ties", "few_values"):  # the cut falls inside a tie
+        cvg_f = xs[2][xs[4][want[0][want[1]]]]
+        assert int((cvg_f == cvg_f[-1]).sum()) >= 2
+
+
+@pytest.mark.parametrize("productive", [True, False])
+@pytest.mark.parametrize("cap", [8, 1024])
+@pytest.mark.parametrize("name", FRONT_CASES)
+def test_back_plain_matches_wave_step(name, cap, productive):
+    """``back_plain`` against the wave step before the back: claim_apply
+    (claim_apply_plain), then failed[cid_arc] marked where cmask & ~ok
+    when nothing merged, and the counts merged, max(n_cand - cand_cap,
+    0), backtracked, compared."""
+    m = 3
+    xs = back_inputs(front_case(name, cap, m, 31), m, cap, 5, productive,
+                     "cpu")
+    failed = xs[-1].clone()
+    got = wave.back(*xs[:-1], failed)
+    want = wave.claim_apply_plain(*xs[:15])
+    ok, (compared, cmask, cid_arc, n_cand, n_back) = xs[5], xs[15:20]
+    n_merged = int(want[5])
+    want_failed = xs[-1].numpy().copy()
+    if n_merged == 0:
+        want_failed[cid_arc.numpy()[(cmask & ~ok).numpy()]] = True
+    assert got[0].tolist() == [n_merged, max(int(n_cand) - cap, 0),
+                               int(n_back), int(compared.sum())]
+    _assert_equal(got[1:], want[:5])
+    np.testing.assert_array_equal(failed.numpy(), want_failed)
+    assert (n_merged > 0) == bool(ok.any())
+    if n_merged == 0 and bool(cmask.any()):
+        assert failed.sum() > xs[-1].sum()  # the examined rows retired
 
 
 # --- the port's _wave against the JAX _wave, every wave of a pinch ----

@@ -1,15 +1,19 @@
-"""The CUDA kernels of the Tour-Bus wave's candidate body (``chains_launch``
-and ``claim_apply_launch`` of csrc/wave.cu) against their plain PyTorch
-versions, on the card, and a captured replay of a wave against the eager
-wave.  Imports no JAX, so it runs where only torch is installed:
+"""The CUDA kernels of the Tour-Bus wave around its identity check
+(``front_launch``, ``back_launch``, and the first entries
+``chains_launch`` and ``claim_apply_launch`` of csrc/wave.cu) against
+their plain PyTorch versions, on the card, and a captured replay of a
+wave against the eager wave.  Imports no JAX, so it runs where only
+torch is installed:
 
     python -m pytest --noconftest tests/test_torch_wave_kernels_gpu.py -m gpu
 
 The case generators here are shared with tests/test_torch_wave_kernels.py
 (the CPU tests) and chip_smoke.py, which loads this file by path.  Exact
-comparison (tolerance 0).
+comparison (tolerance 0); the back's E- and A-sized outputs are compared
+where it merged something (they are undefined where it did not).
 """
 
+import functools
 import os
 
 import numpy as np
@@ -250,6 +254,108 @@ def claim_inputs(case, m: int, seed: int, dev):
     return tuple(x.contiguous().to(dev) for x in xs)
 
 
+# the front's cases (``front_case``): each a wave's arc table with the
+# candidates it names
+FRONT_CASES = ("ties", "few_values", "extreme", "dup_pad", "none", "below",
+               "at", "above", "mixed", "random")
+# coverages at and beyond the limits of int32 and of the wave's clamp
+EXTREME_COV = (-2**31, -2**31 + 1, -16001, -1, 0, 1, 16000, 16001,
+               2**31 - 2, 2**31 - 1)
+FRONT_KEYS = ("n_edges", "deleted", "cvg", "twin", "from_ed", "to_ed",
+              "mult", "failed")
+
+
+@functools.lru_cache(maxsize=None)
+def front_case(name: str, cand_cap: int, m: int, seed: int):
+    """A dict of numpy arrays: the inputs of ``front`` (FRONT_KEYS) and the
+    edges' length, on the arc table of a ``wave_case`` of 64 rows (1,536
+    when cand_cap > 8; ``random`` on that case's random graph, the rest
+    on ``mixed``), 5% of the rows failed.  ``ties``: every coverage 7;
+    ``few_values``: coverages 0, 1 and 7; ``extreme``: EXTREME_COV;
+    ``dup_pad``: a fifth of the rows repeated, 50 (-1, -1, 0) rows, some
+    mult 0, all shuffled, a tenth of the edges deleted and of the rows
+    failed, the last tenth of the edges not in use (n_edges); ``none``:
+    every row failed; ``below``, ``at``: the candidates cut to cand_cap
+    // 2 and cand_cap by failing the others; ``above``: more candidates
+    than cand_cap (the tests check it)."""
+    rng = np.random.default_rng(seed)
+    rows = 64 if cand_cap <= 8 else 1536
+    base = wave_case("random" if name == "random" else "mixed", rows, m,
+                     seed)
+    e = len(base["cvg"])
+    out = {"n_edges": e, "deleted": base["deleted"].copy(),
+           "cvg": base["cvg"].copy(), "twin": base["twin"],
+           "length": base["length"], "from_ed": base["from_ed"],
+           "to_ed": base["to_ed"], "mult": base["mult"]}
+    if name == "ties":
+        out["cvg"][:] = 7
+    elif name == "few_values":
+        out["cvg"] = rng.choice([0, 1, 7], e).astype(np.int64)
+    elif name == "extreme":
+        out["cvg"] = rng.choice(EXTREME_COV, e).astype(np.int64)
+    elif name == "dup_pad":
+        a = len(out["from_ed"])
+        dup = np.flatnonzero(rng.random(a) < 0.2)
+        order = rng.permutation(a + len(dup) + 50)
+        for key, fill in (("from_ed", -1), ("to_ed", -1), ("mult", 0)):
+            x = out[key]
+            out[key] = np.concatenate([x, x[dup], np.full(50, fill)])[order]
+        out["mult"][rng.random(len(order)) < 0.05] = 0
+        out["deleted"] = rng.random(e) < 0.1
+        out["n_edges"] = e - e // 10
+    a = len(out["from_ed"])
+    out["failed"] = rng.random(a) < (0.1 if name == "dup_pad" else 0.05)
+    if name == "none":
+        out["failed"][:] = True
+    if name in ("below", "at"):
+        cand = candidate_rows(out)
+        keep = cand_cap // 2 if name == "below" else cand_cap
+        assert len(cand) >= keep, (name, cand_cap, len(cand))
+        out["failed"][rng.permutation(cand)[keep:]] = True
+    return {k: (v.astype(np.int64) if isinstance(v, np.ndarray)
+                and v.dtype != bool else v) for k, v in out.items()}
+
+
+def candidate_rows(case) -> np.ndarray:
+    """The rows of a ``front_case`` that are candidates, in row order."""
+    xs = front_inputs(case, "cpu")
+    _prev, order, cmask, *_ = wave.candidates_plain(
+        *xs[:3], *xs[4:], cand_cap=len(case["from_ed"]))
+    return np.sort(order[cmask].numpy())
+
+
+def front_inputs(case, dev):
+    """(n_edges, deleted, cvg, twin, from_ed, to_ed, mult, failed) of a
+    ``front_case`` on ``dev``."""
+    return (case["n_edges"], *(torch.from_numpy(np.asarray(case[k])).to(dev)
+                               for k in FRONT_KEYS[1:]))
+
+
+def back_inputs(case, m: int, cand_cap: int, seed: int, productive: bool,
+                dev):
+    """The 22 inputs of ``back`` on ``dev``: ``front_plain``'s outputs on
+    a ``front_case``, ok = found on ~90% of the found rows (none unless
+    ``productive``), compared = ok and half the other found rows, len_a
+    and len_b the paths' summed lengths, the coverage clipped into [0,
+    16,000] (the claim key's ranks need it, and every wave's clamp keeps
+    it), a copy of the case's failed."""
+    rng = np.random.default_rng(seed)
+    (cid_arc, cmask, _u, _t0, maj, mnr, tw_maj, tw_mnr, ends, found, n_back,
+     n_cand) = wave.front_plain(*front_inputs(case, "cpu"), m, cand_cap)
+    c = found.shape[0]
+    ok = found & torch.from_numpy(rng.random(c) < 0.9) & productive
+    compared = ok | (found & torch.from_numpy(rng.random(c) < 0.5))
+    length = torch.from_numpy(case["length"])
+    sums = [wave._gather2(length, x, 0).sum(1) for x in (maj, mnr)]
+    cvg = torch.from_numpy(case["cvg"]).clamp(0, MAX_COV)
+    xs = (maj, mnr, tw_maj, tw_mnr, ends, ok, *sums, cvg, length,
+          *(torch.from_numpy(np.asarray(case[k])) for k in (
+              "twin", "deleted", "from_ed", "to_ed", "mult")),
+          compared, cmask, cid_arc, n_cand, n_back)
+    failed = torch.from_numpy(case["failed"].copy())
+    return (*(x.contiguous().to(dev) for x in xs), cand_cap, failed.to(dev))
+
+
 def max_abs_err(got, want) -> int:
     """The largest |got - want| over matching outputs; raises on a shape
     or type mismatch."""
@@ -307,6 +413,75 @@ def test_claim_apply_kernel_matches_plain(i):
     assert bool((scratch == wave.EMPTY).all())
 
 
+# the front's and the back's cases: every front case at cand_cap 8 and
+# 1,024 and m = 3, 9 and 30; the back on each, with ok rows and without
+FRONT_GPU_CASES = [(name, cap, m) for name in FRONT_CASES
+                   for cap in (8, 1024) for m in (3, 9, 30)]
+BACK_GPU_CASES = [(*case, productive) for case in FRONT_GPU_CASES
+                  for productive in (True, False)]
+
+
+def check_front_case(name: str, cap: int, n_cand: int) -> None:
+    """The case holds the candidates it names."""
+    if name == "none":
+        assert n_cand == 0
+    elif name == "below":
+        assert n_cand == cap // 2
+    elif name == "at":
+        assert n_cand == cap
+    elif name == "above":
+        assert n_cand > cap
+
+
+def back_err(got, want, failed_got, failed_want) -> int:
+    """The largest |got - want| of the back: the counts and failed always,
+    the other outputs where the wave merged something."""
+    n = 6 if int(want[0][0]) > 0 else 1
+    return max(max_abs_err(got[:n], want[:n]),
+               max_abs_err((failed_got,), (failed_want,)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("i", range(len(FRONT_GPU_CASES)))
+def test_front_kernel_matches_plain(i):
+    dev = _card()
+    name, cap, m = FRONT_GPU_CASES[i]
+    case = front_case(name, cap, m, i)
+    xs = front_inputs(case, dev)
+    before = wave.FRONT_LAUNCHES
+    got = wave.front(*xs, m, cap)
+    want = wave.front_plain(*xs, m, cap)
+    torch.cuda.synchronize()
+    assert wave.FRONT_LAUNCHES == before + 1
+    assert max_abs_err(got, want) == 0, (name, cap, m)
+    check_front_case(name, cap, int(want[11]))
+    # the forest scratch is empty again
+    scratch = wave.forest_scratch(dev, xs[2].shape[0])
+    assert bool((scratch == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("i", range(len(BACK_GPU_CASES)))
+def test_back_kernel_matches_plain(i):
+    dev = _card()
+    name, cap, m, productive = BACK_GPU_CASES[i]
+    xs = back_inputs(front_case(name, cap, m, i // 2), m, cap, i,
+                     productive, dev)
+    failed, failed_plain = xs[-1], xs[-1].clone()
+    before = wave.BACK_LAUNCHES
+    got = wave.back(*xs[:-1], failed)
+    want = wave.back_plain(*xs[:-1], failed_plain)
+    torch.cuda.synchronize()
+    assert wave.BACK_LAUNCHES == before + 1
+    assert back_err(got, want, failed, failed_plain) == 0, (name, cap, m)
+    merged = int(want[0][0])
+    assert (merged > 0) == bool(xs[5].any())
+    if not merged and bool(xs[16].any()):
+        assert bool(failed.any())  # the examined rows were retired
+    scratch = wave.claim_scratch(dev, xs[8].shape[0])
+    assert bool((scratch == wave.EMPTY).all())
+
+
 @pytest.fixture(scope="module")
 def small_graph(tmp_path_factory):
     """(EdgeGraph, ArcSet, k) of the port's pregraph of 3,000 simulated
@@ -337,8 +512,9 @@ def small_graph(tmp_path_factory):
 @pytest.mark.parametrize("level", [1, 3])
 def test_replayed_wave_equals_eager(small_graph, level):
     """Each replayed wave of a pinch's program equals ``_wave_step`` run
-    eagerly on copies of the same state, all outputs and ``failed``; the
-    kernels execute once a wave."""
+    eagerly on copies of the same state: the counts and ``failed``, and
+    all outputs where the wave merged (they are undefined where it did
+    not); the front, identity and back kernels execute once a wave."""
     from soapdenovo_trans_tpu_torch.graph import tourbus
 
     eg, aset, _k = small_graph
@@ -356,21 +532,28 @@ def test_replayed_wave_equals_eager(small_graph, level):
                  type(prog.aset)(*(x.clone() for x in prog.aset[:3]),
                                  prog.aset.n),
                  prog.failed.clone())
-        before = (wave.CHAINS_LAUNCHES, wave.CLAIM_APPLY_LAUNCHES)
+        before = executions()
         counts = prog.launch()
         # one execution of each kernel a wave, eager or replayed
-        assert (wave.CHAINS_LAUNCHES, wave.CLAIM_APPLY_LAUNCHES) == \
-            (before[0] + 1, before[1] + 1)
+        assert executions() == tuple(n + 1 for n in before)
         want = tourbus._wave_step(*state, *prog.args)
         torch.cuda.synchronize()
+        n, over = counts.tolist()[:2]
         if prog.graph is not None:
             replays += 1
-            assert max_abs_err(prog.outs, want) == 0
+            k = 6 if n else 1  # the counts alone when nothing merged
+            assert max_abs_err(prog.outs[:k], want[:k]) == 0
             assert torch.equal(prog.failed, state[2])
-        n, over = counts.tolist()[:2]
         if n:
             productive += 1
             prog.apply()
         elif not over:
             break
     assert replays >= 1 and productive >= 1
+
+
+def executions() -> tuple:
+    """Executions of the front, identity and back kernels."""
+    from soapdenovo_trans_tpu_torch.kernels import lcs
+
+    return wave.FRONT_LAUNCHES, lcs.IDENTITY_LAUNCHES, wave.BACK_LAUNCHES

@@ -15,17 +15,20 @@ stage's seconds, the Tour-Bus waves and seconds a wave, the captures and
 replays, the device-busy share of the profiled stage (the sum of kernel
 time over wall time), the kernels executed a wave and the graph launches
 (``cudaGraphLaunch`` calls) a wave, the device time a launch of each
-kernel of ``csrc/lcs.cu`` and ``csrc/wave.cu`` a wave runs (the identity
-check; chains; claim, apply and arcs, the three kernels of claim_apply)
-and the twelve kernels with the most device time, those run by the
-replays included.  Then the hand kernels of the wave alone, 20 calls
-each under the profiler: the identity kernel at a real wave's shape (12
-of 1,024 rows compared, paths of 24 bases) and at 1,024 x 384 with full
-paths, the standalone LCS kernel at 1,024 x 384 with la = lb = 384, and
-chains and claim_apply on the ``mixed`` case of
-``tests/test_torch_wave_kernels_gpu.py`` at C = 1,024, m = 3; their
-device time a call, which CUDA events around one call cannot separate
-from the wrapper's host time.  The last line is a JSON object of the
+kernel of ``csrc/lcs.cu`` and ``csrc/wave.cu`` a wave runs (the front's
+eight, the identity check, the back's four; a tree from before the front
+and the back reports the kernels it has) and the device us a wave of the
+front's and the back's kernels together, and the twelve kernels with the
+most device time, those run by the replays included.  Then the hand
+kernels of the wave alone, 20 calls each under the profiler: the
+identity kernel at a real wave's shape (12 of 1,024 rows compared, paths
+of 24 bases) and at 1,024 x 384 with full paths, the standalone LCS
+kernel at 1,024 x 384 with la = lb = 384, chains and claim_apply on the
+``mixed`` case of ``tests/test_torch_wave_kernels_gpu.py`` at C = 1,024,
+m = 3, and the front and the back (with ok rows and without) on its
+``mixed`` front case at 1,024 candidates, m = 3; their device time a
+call, which CUDA events around one call cannot separate from the
+wrapper's host time.  The last line is a JSON object of the
 same.  With ``--unprofiled`` only the first ``contig -g`` runs (a size whose
 profile would not fit, such as 1,000,000 pairs): its seconds, waves,
 seconds a wave and peak bytes.  Imports nothing of JAX.
@@ -53,9 +56,14 @@ from tests import test_torch_wave_kernels_gpu as wave_cases  # noqa: E402
 from tests.test_torch_lcs_gpu import (identity_case,  # noqa: E402
                                       identity_to_device)
 
-# the hand kernels a wave runs, by name
-WAVE_KERNELS = ("identity_kernel", "chains_kernel", "claim_kernel",
-                "apply_kernel", "arcs_kernel")
+# the hand kernels a wave runs, by name: the front's, the identity
+# check's, the back's
+FRONT_KERNELS = ("front_forest_kernel", "front_cand_kernel",
+                 "front_select_kernel", "front_count_kernel",
+                 "front_scatter_kernel", "front_sort_kernel", "chains_kernel")
+BACK_KERNELS = ("back_head_kernel", "claim_kernel", "apply_kernel",
+                "arcs_kernel")
+WAVE_KERNELS = FRONT_KERNELS + ("identity_kernel",) + BACK_KERNELS
 
 
 def timed_contig(prefix: str):
@@ -103,7 +111,29 @@ def wave_alone_us(reps: int = 20) -> dict:
                 lambda: wave.chains(*chains_in, 3), ("chains_kernel",), reps),
             "claim_apply_alone_1024x3_us": device_us(
                 lambda: wave.claim_apply(*claim_in),
-                ("claim_kernel", "apply_kernel", "arcs_kernel"), reps)}
+                ("claim_kernel", "apply_kernel", "arcs_kernel"), reps),
+            **front_back_alone_us(reps)}
+
+
+def front_back_alone_us(reps: int = 20) -> dict:
+    """Device microseconds a call of the front (its eight kernels) and of
+    the back (its four; with ok rows, and without, where three return at
+    once) on the ``mixed`` front case of
+    tests/test_torch_wave_kernels_gpu.py at 1,024 candidates, m = 3; {}
+    on a tree without them."""
+    if not hasattr(wave, "front"):
+        return {}
+    case = wave_cases.front_case("mixed", 1024, 3, 7)
+    front_in = (*wave_cases.front_inputs(case, "cuda"), 3, 1024)
+    out = {"front_alone_1024x3_us": device_us(
+        lambda: wave.front(*front_in), FRONT_KERNELS, reps)}
+    for productive in (True, False):
+        back_in = wave_cases.back_inputs(case, 3, 1024, 7, productive,
+                                         "cuda")
+        key = "merged" if productive else "unproductive"
+        out[f"back_alone_1024x3_{key}_us"] = device_us(
+            lambda: wave.back(*back_in), BACK_KERNELS, reps)
+    return out
 
 
 def device_us(fn, kernels, reps: int) -> float:
@@ -121,15 +151,17 @@ def device_us(fn, kernels, reps: int) -> float:
 
 
 def executions() -> dict:
-    """Executions of each hand kernel of the wave since the last reset."""
-    return {"identity_launches": lcs.IDENTITY_LAUNCHES,
-            "chains_launches": wave.CHAINS_LAUNCHES,
-            "claim_apply_launches": wave.CLAIM_APPLY_LAUNCHES}
+    """Executions of each hand-kernel entry of the wave since the last
+    reset: those of ``tourbus._KERNELS``."""
+    return {f"{module.__name__.rsplit('.', 1)[-1]}.{counter}":
+            getattr(module, counter)
+            for module, counter, _ in tourbus._KERNELS}
 
 
 def reset_counts() -> None:
-    lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
-    wave.CHAINS_LAUNCHES = wave.CLAIM_APPLY_LAUNCHES = 0
+    lcs.LAUNCHES = 0
+    for module, counter, _ in tourbus._KERNELS:
+        setattr(module, counter, 0)
     tourbus.CAPTURES = tourbus.REPLAYS = 0
 
 
@@ -181,6 +213,10 @@ def main() -> int:
         if n:
             per_launch[name] = {"seconds": sec, "launches": n,
                                 "us_per_launch": 1e6 * sec / n}
+    per_wave = {f"{part}_us_per_wave": 1e6 * sum(
+        per_launch[k]["seconds"] for k in kernels if k in per_launch)
+        / max(waves, 1) for part, kernels in (("front", FRONT_KERNELS),
+                                              ("back", BACK_KERNELS))}
     numbers = {
         "card": card, "pairs": pairs, "what": "contig -g on one card",
         "stage_s": plain_s, "profiled_stage_s": wall,
@@ -192,7 +228,7 @@ def main() -> int:
         "graph_launches_per_wave": profsum.runtime_calls(
             prof, "cudaGraphLaunch") / max(waves, 1),
         "unprofiled": plain,
-        "wave_kernels": per_launch,
+        "wave_kernels": per_launch, **per_wave,
         "lcs_kernel_launches": lcs.LAUNCHES,
         **summary,
         "identity_alone_wave_1024x384_us": identity_alone_us("wave"),
