@@ -30,11 +30,12 @@ import argparse
 import dataclasses
 import os
 import sys
-import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .utils import profiling
 
 READ_BATCH = 131072  # reads per IO batch
 MAP_BATCH = 131072   # reads per map batch (even: mates share a batch)
@@ -291,33 +292,35 @@ def run_pregraph_cmd(args, device: torch.device, mesh=None):
         factory, args.k, device, low_freq_cutoff=args.low_kmer,
         path_recorder_factory=recorder_factory if args.reps_tie else None,
         mesh=mesh)
-    if recorders:
-        rec, nxt = recorders[0]
-        stagefiles.write_mark_on_edge(
-            args.out + ".markOnEdge", rec.close(), nxt - 1)
-        res.path_reads = rec.n_reads
-        print(f"[pregraph] wrote {args.out}.path/.markOnEdge")
-    # a mesh run counts the histogram on the mesh (res.table is then
-    # only the mini endpoint table)
-    hist = res.freq_hist if res.freq_hist is not None \
-        else pg_stage.kmer_freq_histogram(res.table)
-    if factory.n_windows:
-        # -n: the reference hashes every N-containing window as one
-        # InvalidKmer node (prlHashReads.c:207-213); it surfaces in the
-        # frequency histogram as a single key with that many hits
-        hist[min(factory.n_windows, len(hist) - 1)] += 1
-        print(f"[pregraph] -n: {factory.n_windows} N-containing "
-              f"windows counted as sentinel kmer")
-    stagefiles.write_kmer_freq(args.out + ".kmerFreq", hist)
-    grads, n_reads = factory.pe_grads()
-    if grads:
-        stagefiles.write_pe_grads(
-            args.out + ".peGrads", grads, n_reads, cfg.max_rd_len)
-    n_vt = graph_files.write_pregraph_files(
-        args.out, res.table, res.edges, res.arcs, args.k)
-    stagefiles.write_pregraph_basic(
-        args.out + ".preGraphBasic", n_vertex=n_vt, k=args.k,
-        n_edge=res.edges.n_edges, max_read_len=cfg.max_rd_len)
+    # every file of the stage: the span pregraph.write
+    with profiling.span("pregraph.write"):
+        if recorders:
+            rec, nxt = recorders[0]
+            stagefiles.write_mark_on_edge(
+                args.out + ".markOnEdge", rec.close(), nxt - 1)
+            res.path_reads = rec.n_reads
+            print(f"[pregraph] wrote {args.out}.path/.markOnEdge")
+        # a mesh run counts the histogram on the mesh (res.table is then
+        # only the mini endpoint table)
+        hist = res.freq_hist if res.freq_hist is not None \
+            else pg_stage.kmer_freq_histogram(res.table)
+        if factory.n_windows:
+            # -n: the reference hashes every N-containing window as one
+            # InvalidKmer node (prlHashReads.c:207-213); it surfaces in the
+            # frequency histogram as a single key with that many hits
+            hist[min(factory.n_windows, len(hist) - 1)] += 1
+            print(f"[pregraph] -n: {factory.n_windows} N-containing "
+                  f"windows counted as sentinel kmer")
+        stagefiles.write_kmer_freq(args.out + ".kmerFreq", hist)
+        grads, n_reads = factory.pe_grads()
+        if grads:
+            stagefiles.write_pe_grads(
+                args.out + ".peGrads", grads, n_reads, cfg.max_rd_len)
+        n_vt = graph_files.write_pregraph_files(
+            args.out, res.table, res.edges, res.arcs, args.k)
+        stagefiles.write_pregraph_basic(
+            args.out + ".preGraphBasic", n_vertex=n_vt, k=args.k,
+            n_edge=res.edges.n_edges, max_read_len=cfg.max_rd_len)
     print(f"[pregraph] wrote {args.out}.kmerFreq/.preGraphBasic/"
           f".vertex/.edge.gz/.preArc")
     return res
@@ -348,14 +351,13 @@ def run_contig_cmd(args, device: torch.device, res=None):
         # reference Trans flow) — resolve repeats with read paths
         from .graph import split_reps
 
-        t0 = time.time()
-        file_id, _order, nxt = graph_files.edge_file_ids(edges)
-        inv = np.full(nxt + 1, -1, np.int64)
-        inv[file_id] = np.arange(file_id.shape[0])
-        edges, aset, n_split = split_reps.solve_reps(
-            edges, aset, split_reps.path_triples(
-                stagefiles.read_path_bin(args.out + ".path"), inv))
-        split_s = {"split": time.time() - t0}
+        with profiling.phase(split_s, "contig", "split"):
+            file_id, _order, nxt = graph_files.edge_file_ids(edges)
+            inv = np.full(nxt + 1, -1, np.int64)
+            inv[file_id] = np.arange(file_id.shape[0])
+            edges, aset, n_split = split_reps.solve_reps(
+                edges, aset, split_reps.path_triples(
+                    stagefiles.read_path_bin(args.out + ".path"), inv))
         print(f"[contig] splitReps: {n_split} repeat edges split "
               f"({split_s['split']:.1f}s)")
 
@@ -364,16 +366,18 @@ def run_contig_cmd(args, device: torch.device, res=None):
         light_out_pct=args.light_out, light_flow_pct=args.light_flow,
         high_arc_multi=args.high_arc, short_component=args.short_cutoff)
     result = contig_stage.run_contig(edges, aset, k, params, table=table)
-    # renumber rows into .contig/.ContigIndex file order once, so the
-    # internal row ids downstream (map, scaff) == file ids - 1
-    file_perm = contig_merge.contig_file_perm(result.contigs, k)
-    ctg = contig_merge.reorder_contigs(result.contigs, file_perm)
-    perm = stagefiles.write_contig_fasta(
-        args.out + ".contig", ctg, table, k, arcs=ctg.arcs)
-    if perm != list(range(ctg.n)):
-        raise RuntimeError("contig file order is not the row order")
-    stagefiles.write_contig_index(args.out + ".ContigIndex", ctg, k, perm)
-    graph_files.write_contig_graph_files(args.out, ctg, table, k, perm)
+    with profiling.span("contig.write"):
+        # renumber rows into .contig/.ContigIndex file order once, so the
+        # internal row ids downstream (map, scaff) == file ids - 1
+        file_perm = contig_merge.contig_file_perm(result.contigs, k)
+        ctg = contig_merge.reorder_contigs(result.contigs, file_perm)
+        perm = stagefiles.write_contig_fasta(
+            args.out + ".contig", ctg, table, k, arcs=ctg.arcs)
+        if perm != list(range(ctg.n)):
+            raise RuntimeError("contig file order is not the row order")
+        stagefiles.write_contig_index(args.out + ".ContigIndex", ctg, k,
+                                      perm)
+        graph_files.write_contig_graph_files(args.out, ctg, table, k, perm)
     print(f"[contig] wrote {args.out}.contig/.ContigIndex/"
           f".updated.edge/.Arc")
     old2new = torch.full_like(ctg.length, -1)
@@ -466,150 +470,153 @@ def run_map_cmd(args, device: torch.device, ctg=None, table=None,
               f"{args.out}.updated.edge/.Arc/.contig")
     else:
         k = args.k
-    t0 = time.time()
-    index = map_stage.build_contig_index(ctg, table, k)
-    full_len = ctg.length + k
-    sidx = None
-    if mesh is not None:
-        from .parallel import sharded_map
+    phases = dict.fromkeys(("index", "reads", "vote", "write"), 0.0)
+    with profiling.phase(phases, "map", "index"):
+        index = map_stage.build_contig_index(ctg, table, k)
+        full_len = ctg.length + k
+        sidx = None
+        if mesh is not None:
+            from .parallel import sharded_map
 
-        moved = (mesh.exchanges, mesh.exchange_bytes)
-        sidx = sharded_map.shard_index(mesh, index, k)
-        print(f"[map] sharding contig index over {mesh}")
-    t1 = time.time()
+            moved = (mesh.exchanges, mesh.exchange_bytes)
+            sidx = sharded_map.shard_index(mesh, index, k)
+            print(f"[map] sharding contig index over {mesh}")
 
-    group_rows = []  # per batch: (read, ctg, ctg_off, read_off, same, align)
-    gap_parts, pe_parts = [], []  # -f payloads, per batch
-    batch = MAP_BATCH
-    if args.gap_reads:
-        batch = max(batch // GAP_READ_BLOCK, 1) * GAP_READ_BLOCK
-    base = 0  # global REAL-read counter: padded rows (length 0) are not
-    #           numbered, matching the reference's dense readno space
-    #           (readCounter, prlRead2Ctg.c:539)
-    lib_reads: Dict[int, int] = {}  # lib index -> reads (for .peGrads)
-    max_read_len = 0
-    vote_s = 0.0
-    for codes, lengths, li in fastx.config_read_batches(
-            cfg, batch, purpose=2):
-        lib = cfg.libs[li]
-        real = lengths > 0
-        n_real = int(real.sum())
-        lib_reads[li] = lib_reads.get(li, 0) + n_real
-        if not n_real:
-            continue
-        # a library's last batch is padded with length-0 reads: drop
-        # them, keeping an even row count so mates stay paired
-        rows = int(np.flatnonzero(real)[-1]) + 1
-        rows += rows & 1
-        codes, lengths, real = codes[:rows], lengths[:rows], real[:rows]
-        row_no = base + np.cumsum(real) - 1  # row -> 0-based read index
-        max_read_len = max(max_read_len, int(lengths.max()))
-        tv = time.time()
-        if sidx is not None:
-            pl = sharded_map.map_reads_sharded(
-                mesh, sidx, codes, lengths, k, map_len=lib.map_len or 32)
-        else:
-            pl = map_stage.map_reads(
-                torch.from_numpy(codes).to(device),
-                torch.from_numpy(lengths).to(device), index, k,
-                map_len=lib.map_len or 32)
-        q = pl.g_valid
-        g = torch.stack([pl.g_read[q], pl.g_ctg[q], pl.g_ctg_off[q],
-                         pl.g_read_off[q], pl.g_same[q].to(torch.int64),
-                         pl.g_align[q]]).cpu().numpy()
-        vote_s += time.time() - tv
+    with profiling.phase(phases, "map", "reads"):
+        # per batch: (read, ctg, ctg_off, read_off, same, align)
+        group_rows = []
+        gap_parts, pe_parts = [], []  # -f payloads, per batch
+        batch = MAP_BATCH
         if args.gap_reads:
-            # qualifying groups on distinct contigs, per batch row
-            pairs = np.unique(g[0] * (ctg.n + 1) + g[1])
-            gaps, pe = _gap_read_rows(
-                pl.ctg.cpu().numpy(), pl.pos.cpu().numpy(),
-                np.bincount(pairs // (ctg.n + 1), minlength=rows),
-                codes, lengths.astype(np.int64), row_no,
-                lib.avg_ins if lib.has_pairs else None)
-            gap_parts.append(gaps)
-            pe_parts.append(pe)
-        if lib.has_pairs and lib.avg_ins > 0:
-            ins, n_obs = connections.estimate_insert_size(
-                pl.ctg, pl.pos, ctg.twin, full_len, lib.avg_ins)
-            if ins != lib.avg_ins:
-                print(f"[map] lib {li}: insert size estimate "
-                      f"{lib.avg_ins} -> {ins} ({n_obs} pairs)")
-        # qualifying alignment groups in read-encounter order
-        # (recordAlldgn, reference prlRead2Ctg.c:530-614)
-        if g.shape[1]:
-            g[0] = row_no[g[0]]
-            group_rows.append(g[:, np.lexsort((g[3], g[0]))])
-        base += n_real
-    t2 = time.time()
+            batch = max(batch // GAP_READ_BLOCK, 1) * GAP_READ_BLOCK
+        # global REAL-read counter: padded rows (length 0) are not
+        # numbered, matching the reference's dense readno space
+        # (readCounter, prlRead2Ctg.c:539)
+        base = 0
+        lib_reads: Dict[int, int] = {}  # lib index -> reads (for .peGrads)
+        max_read_len = 0
+        for codes, lengths, li in fastx.config_read_batches(
+                cfg, batch, purpose=2):
+            lib = cfg.libs[li]
+            real = lengths > 0
+            n_real = int(real.sum())
+            lib_reads[li] = lib_reads.get(li, 0) + n_real
+            if not n_real:
+                continue
+            # a library's last batch is padded with length-0 reads: drop
+            # them, keeping an even row count so mates stay paired
+            rows = int(np.flatnonzero(real)[-1]) + 1
+            rows += rows & 1
+            codes, lengths, real = codes[:rows], lengths[:rows], real[:rows]
+            row_no = base + np.cumsum(real) - 1  # row -> 0-based read index
+            max_read_len = max(max_read_len, int(lengths.max()))
+            with profiling.phase(phases, "map", "vote"):
+                if sidx is not None:
+                    pl = sharded_map.map_reads_sharded(
+                        mesh, sidx, codes, lengths, k,
+                        map_len=lib.map_len or 32)
+                else:
+                    pl = map_stage.map_reads(
+                        torch.from_numpy(codes).to(device),
+                        torch.from_numpy(lengths).to(device), index, k,
+                        map_len=lib.map_len or 32)
+                q = pl.g_valid
+                g = torch.stack([
+                    pl.g_read[q], pl.g_ctg[q], pl.g_ctg_off[q],
+                    pl.g_read_off[q], pl.g_same[q].to(torch.int64),
+                    pl.g_align[q]]).cpu().numpy()
+            if args.gap_reads:
+                # qualifying groups on distinct contigs, per batch row
+                pairs = np.unique(g[0] * (ctg.n + 1) + g[1])
+                gaps, pe = _gap_read_rows(
+                    pl.ctg.cpu().numpy(), pl.pos.cpu().numpy(),
+                    np.bincount(pairs // (ctg.n + 1), minlength=rows),
+                    codes, lengths.astype(np.int64), row_no,
+                    lib.avg_ins if lib.has_pairs else None)
+                gap_parts.append(gaps)
+                pe_parts.append(pe)
+            if lib.has_pairs and lib.avg_ins > 0:
+                ins, n_obs = connections.estimate_insert_size(
+                    pl.ctg, pl.pos, ctg.twin, full_len, lib.avg_ins)
+                if ins != lib.avg_ins:
+                    print(f"[map] lib {li}: insert size estimate "
+                          f"{lib.avg_ins} -> {ins} ({n_obs} pairs)")
+            # qualifying alignment groups in read-encounter order
+            # (recordAlldgn, reference prlRead2Ctg.c:530-614)
+            if g.shape[1]:
+                g[0] = row_no[g[0]]
+                group_rows.append(g[:, np.lexsort((g[3], g[0]))])
+            base += n_real
 
-    # .peGrads from the map pass's own library accounting, like the
-    # reference's map-side writer (prlRead2Ctg.c:827-840): per-grad
-    # cumulative read-number bounds; equal insert sizes merge; the raw
-    # pair_num_cut, 0 when unset (prlRead2Ctg.c:842)
-    grads = []
-    bound = 0
-    for li in sorted(lib_reads):
-        lib = cfg.libs[li]
-        bound += lib_reads[li]
-        if not lib.has_pairs or lib.avg_ins <= 0:
-            continue
-        if grads and grads[-1][0] == lib.avg_ins:
-            grads[-1] = (lib.avg_ins, bound, 0, lib.pair_num_cut)
-        else:
-            grads.append((lib.avg_ins, bound, 0, lib.pair_num_cut))
-    stagefiles.write_pe_grads(
-        args.out + ".peGrads", grads, base, max_read_len)
-    g_read, g_ctg, g_off, g_roff, g_same, g_aln = (
-        np.concatenate(group_rows, 1) if group_rows
-        else np.zeros((6, 0), np.int64))
-    # .readOnContig: one line per mapped read; odd readnos report the
-    # LAST alignment group, even the FIRST (recordAlldgn,
-    # prlRead2Ctg.c:565-568); pos = contigOffset - readOffset + 1
-    new_read = g_read[1:] != g_read[:-1]
-    first_of = np.concatenate([[True], new_read])[:g_read.size]
-    last_of = np.concatenate([new_read, [True]])[:g_read.size]
-    sel = np.flatnonzero(np.where((g_read + 1) % 2 == 1, last_of, first_of))
-    orien_col = np.where(g_same == 1, "+", "-")
-    stagefiles.write_placement_table(
-        args.out + ".readOnContig", g_read[sel] + 1, g_ctg[sel] + 1,
-        g_off[sel] - g_roff[sel] + 1, orien_col[sel])
-    stagefiles.write_placement_table(
-        args.out + ".ctg2Read", g_read + 1, g_ctg + 1, g_roff - g_off,
-        orien_col)
-    if args.read_trace or args.rpkm:
-        # .readInformation (reference prlRead2Ctg.c:575-588, -r/-R):
-        # readno readOffset-1 ctg ctgOffset alignLen+K-1 orien, with
-        # '-' rows flipped back to the stored-orientation contig
-        twin = ctg.twin.cpu().numpy()
-        alen = g_aln + k - 1
-        safe_ctg = np.clip(g_ctg, 0, twin.shape[0] - 1)
-        plus = g_same == 1
-        stagefiles.write_read_information(
-            args.out + ".readInformation", g_read + 1, g_roff - 1,
-            np.where(plus, g_ctg, twin[safe_ctg]) + 1,
-            np.where(plus, g_off,
-                     full_len.cpu().numpy()[safe_ctg] - g_off - alen),
-            alen, orien_col)
-        print(f"[map] wrote {args.out}.readInformation "
-              f"({g_read.size} alignments)")
-    n_gap = n_pe = None
-    if args.gap_reads:
-        gaps = stagefiles.GapReads.concat(gap_parts, cfg.max_rd_len)
-        pe = np.concatenate(pe_parts) if pe_parts \
-            else np.zeros((0, 5), np.int64)
-        stagefiles.write_read_in_gap(args.out + ".readInGap", gaps)
-        stagefiles.write_pe_read_on_contig(
-            args.out + ".PEreadOnContig.gz", pe)
-        stagefiles.write_short_read_in_gap(
-            args.out + ".shortreadInGap.gz", gaps)
-        n_gap, n_pe = len(gaps), pe.shape[0]
-        print(f"[map] wrote {n_gap} gap reads (.readInGap/"
-              f".shortreadInGap.gz), {n_pe} PE placements "
-              f"(.PEreadOnContig.gz)")
-    print(f"[map] wrote {args.out}.readOnContig/.ctg2Read/.peGrads")
-    return MapResult(base, int(sel.size), int(g_read.size), index.n, {
-        "index": t1 - t0, "reads": t2 - t1, "vote": vote_s,
-        "write": time.time() - t2}, n_gap, n_pe,
+    with profiling.phase(phases, "map", "write"):
+        # .peGrads from the map pass's own library accounting, like the
+        # reference's map-side writer (prlRead2Ctg.c:827-840): per-grad
+        # cumulative read-number bounds; equal insert sizes merge; the raw
+        # pair_num_cut, 0 when unset (prlRead2Ctg.c:842)
+        grads = []
+        bound = 0
+        for li in sorted(lib_reads):
+            lib = cfg.libs[li]
+            bound += lib_reads[li]
+            if not lib.has_pairs or lib.avg_ins <= 0:
+                continue
+            if grads and grads[-1][0] == lib.avg_ins:
+                grads[-1] = (lib.avg_ins, bound, 0, lib.pair_num_cut)
+            else:
+                grads.append((lib.avg_ins, bound, 0, lib.pair_num_cut))
+        stagefiles.write_pe_grads(
+            args.out + ".peGrads", grads, base, max_read_len)
+        g_read, g_ctg, g_off, g_roff, g_same, g_aln = (
+            np.concatenate(group_rows, 1) if group_rows
+            else np.zeros((6, 0), np.int64))
+        # .readOnContig: one line per mapped read; odd readnos report the
+        # LAST alignment group, even the FIRST (recordAlldgn,
+        # prlRead2Ctg.c:565-568); pos = contigOffset - readOffset + 1
+        new_read = g_read[1:] != g_read[:-1]
+        first_of = np.concatenate([[True], new_read])[:g_read.size]
+        last_of = np.concatenate([new_read, [True]])[:g_read.size]
+        sel = np.flatnonzero(np.where((g_read + 1) % 2 == 1, last_of,
+                                      first_of))
+        orien_col = np.where(g_same == 1, "+", "-")
+        stagefiles.write_placement_table(
+            args.out + ".readOnContig", g_read[sel] + 1, g_ctg[sel] + 1,
+            g_off[sel] - g_roff[sel] + 1, orien_col[sel])
+        stagefiles.write_placement_table(
+            args.out + ".ctg2Read", g_read + 1, g_ctg + 1, g_roff - g_off,
+            orien_col)
+        if args.read_trace or args.rpkm:
+            # .readInformation (reference prlRead2Ctg.c:575-588, -r/-R):
+            # readno readOffset-1 ctg ctgOffset alignLen+K-1 orien, with
+            # '-' rows flipped back to the stored-orientation contig
+            twin = ctg.twin.cpu().numpy()
+            alen = g_aln + k - 1
+            safe_ctg = np.clip(g_ctg, 0, twin.shape[0] - 1)
+            plus = g_same == 1
+            stagefiles.write_read_information(
+                args.out + ".readInformation", g_read + 1, g_roff - 1,
+                np.where(plus, g_ctg, twin[safe_ctg]) + 1,
+                np.where(plus, g_off,
+                         full_len.cpu().numpy()[safe_ctg] - g_off - alen),
+                alen, orien_col)
+            print(f"[map] wrote {args.out}.readInformation "
+                  f"({g_read.size} alignments)")
+        n_gap = n_pe = None
+        if args.gap_reads:
+            gaps = stagefiles.GapReads.concat(gap_parts, cfg.max_rd_len)
+            pe = np.concatenate(pe_parts) if pe_parts \
+                else np.zeros((0, 5), np.int64)
+            stagefiles.write_read_in_gap(args.out + ".readInGap", gaps)
+            stagefiles.write_pe_read_on_contig(
+                args.out + ".PEreadOnContig.gz", pe)
+            stagefiles.write_short_read_in_gap(
+                args.out + ".shortreadInGap.gz", gaps)
+            n_gap, n_pe = len(gaps), pe.shape[0]
+            print(f"[map] wrote {n_gap} gap reads (.readInGap/"
+                  f".shortreadInGap.gz), {n_pe} PE placements "
+                  f"(.PEreadOnContig.gz)")
+        print(f"[map] wrote {args.out}.readOnContig/.ctg2Read/.peGrads")
+    return MapResult(
+        base, int(sel.size), int(g_read.size), index.n, phases, n_gap, n_pe,
         mesh.exchanges - moved[0] if mesh else None,
         mesh.exchange_bytes - moved[1] if mesh else None)
 
@@ -636,53 +643,54 @@ def run_scaff_cmd(args, device: torch.device, ctg=None, table=None):
               f"{args.out}.updated.edge/.Arc/.contig")
     else:
         k = args.k
-    t0 = time.time()
-    conn, extras = pelinks.build_connections(
-        args.out, ctg, k, min_unique_len=args.min_contig)
-    print(f"[scaff] {conn.n} contig connections from "
-          f"{args.out}.readOnContig/.ctg2Read")
-    params = scaff_stage.ScaffParams(
-        min_unique_len=args.min_contig,
-        max_transcripts=args.max_transcripts, max_cnt=args.max_cnt,
-        ins_size_var=extras["ins_size_var"],
-        gap_len_diff=args.gap_len_diff, fill_gaps=args.fill_gaps)
-    read_ctg = extras["read_ctg"]
-    gap_read_source = None
-    if args.fill_gaps and args.config and read_ctg is not None:
-        cfg = libconfig.parse_config(args.config)
-        gap_read_source = (
-            read_ctg, extras["read_pos"],
-            lambda: fastx.config_read_batches(cfg, READ_BATCH, purpose=2),
-            extras["read_ins"])
-    preset = None
-    if args.skip_scaffold:
-        # .scaf_gap coordinates are in K-exclusive contig-length space
-        # (reference outputOneTranscriptome, transcriptome.c:1210)
-        preset = stagefiles.read_scaf_gap(
-            args.out + ".scaf_gap", ctg.length.cpu().numpy(), k)
-        print(f"[scaff] -S: reusing {len(preset)} transcript structures "
-              f"from {args.out}.scaf_gap")
-    t1 = time.time()
+    # links and write, added after run_scaff's own phases
+    seconds: Dict[str, float] = {}
+    with profiling.phase(seconds, "scaff", "links"):
+        conn, extras = pelinks.build_connections(
+            args.out, ctg, k, min_unique_len=args.min_contig)
+        print(f"[scaff] {conn.n} contig connections from "
+              f"{args.out}.readOnContig/.ctg2Read")
+        params = scaff_stage.ScaffParams(
+            min_unique_len=args.min_contig,
+            max_transcripts=args.max_transcripts, max_cnt=args.max_cnt,
+            ins_size_var=extras["ins_size_var"],
+            gap_len_diff=args.gap_len_diff, fill_gaps=args.fill_gaps)
+        read_ctg = extras["read_ctg"]
+        gap_read_source = None
+        if args.fill_gaps and args.config and read_ctg is not None:
+            cfg = libconfig.parse_config(args.config)
+            gap_read_source = (
+                read_ctg, extras["read_pos"],
+                lambda: fastx.config_read_batches(cfg, READ_BATCH, purpose=2),
+                extras["read_ins"])
+        preset = None
+        if args.skip_scaffold:
+            # .scaf_gap coordinates are in K-exclusive contig-length space
+            # (reference outputOneTranscriptome, transcriptome.c:1210)
+            preset = stagefiles.read_scaf_gap(
+                args.out + ".scaf_gap", ctg.length.cpu().numpy(), k)
+            print(f"[scaff] -S: reusing {len(preset)} transcript structures "
+                  f"from {args.out}.scaf_gap")
     sres = scaff_stage.run_scaff(
         ctg, conn, k, table, params, ctg_arcs=ctg.arcs,
         gap_read_source=gap_read_source, preset_transcripts=preset)
-    t2 = time.time()
-    recs = sres.recs
-    fastx.write_fasta(args.out + ".scafSeq", recs)
-    stagefiles.write_gap_seq(args.out + ".gapSeq", sres.gap_report)
-    stagefiles.write_scaf_files(
-        args.out, sres.transcripts, recs, ctg.length.cpu().numpy(),
-        ctg.twin.cpu().numpy(), k, placements=sres.placements,
-        routes=sres.routes, n_runs=sres.n_runs)
-    stagefiles.write_scaf_statistics(
-        args.out, known_genome_size=args.genome_size)
-    if (args.read_trace or args.rpkm) and read_ctg is not None:
-        _write_read_tables(args, sres, ctg, k, read_ctg)
-    n_scaf = sum(1 for h, _ in recs if h.startswith("scaffold"))
-    print(f"[scaff] {n_scaf} transcripts + {len(recs) - n_scaf} "
-          f"singletons -> {args.out}.scafSeq "
-          f"(N50={sres.stats.get('N50', 0)})")
-    sres.phase_seconds.update(links=t1 - t0, write=time.time() - t2)
+    with profiling.phase(seconds, "scaff", "write"):
+        recs = sres.recs
+        fastx.write_fasta(args.out + ".scafSeq", recs)
+        stagefiles.write_gap_seq(args.out + ".gapSeq", sres.gap_report)
+        stagefiles.write_scaf_files(
+            args.out, sres.transcripts, recs, ctg.length.cpu().numpy(),
+            ctg.twin.cpu().numpy(), k, placements=sres.placements,
+            routes=sres.routes, n_runs=sres.n_runs)
+        stagefiles.write_scaf_statistics(
+            args.out, known_genome_size=args.genome_size)
+        if (args.read_trace or args.rpkm) and read_ctg is not None:
+            _write_read_tables(args, sres, ctg, k, read_ctg)
+        n_scaf = sum(1 for h, _ in recs if h.startswith("scaffold"))
+        print(f"[scaff] {n_scaf} transcripts + {len(recs) - n_scaf} "
+              f"singletons -> {args.out}.scafSeq "
+              f"(N50={sres.stats.get('N50', 0)})")
+    sres.phase_seconds.update(seconds)
     return sres
 
 
@@ -720,7 +728,8 @@ def _write_read_tables(args, sres, ctg, k: int, read_ctg) -> None:
 class AllResult:
     """The four stages of ``all``, with each stage's seconds (host
     clock, devices synchronized) and peak device memory (CUDA only; on
-    a mesh, of its first device)."""
+    a mesh, of its first device), and the run's spans (name ->
+    (seconds, calls)) and counters (name -> total)."""
 
     pregraph: object
     contig: object
@@ -728,16 +737,16 @@ class AllResult:
     scaff: object
     stage_seconds: Dict[str, float]
     peak_bytes: Dict[str, Optional[int]]
+    spans: Dict[str, Tuple[float, int]]
+    counters: Dict[str, float]
 
 
 def run_all(args, device: torch.device, mesh=None,
             timings=None) -> AllResult:
     """pregraph -> contig in memory -> map in memory -> scaff (JAX
     ``cli.main``'s ``all``, cli.py:748-756); pregraph and map on the
-    mesh if there is one.  The stages' seconds also go into
-    ``timings`` (a ``profiling.StageTimings``) when given."""
-    from .utils import profiling
-
+    mesh if there is one.  ``timings`` (a ``profiling.StageTimings``,
+    a fresh one when not given) is the active recorder for the run."""
     timings = timings or profiling.StageTimings()
     seconds: Dict[str, float] = {}
     peak: Dict[str, Optional[int]] = {}
@@ -753,46 +762,47 @@ def run_all(args, device: torch.device, mesh=None,
         sync()
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
-        t0 = time.time()
-        with timings.stage_timer(name):
+        with timings.stage_timer(name) as sp:
             out = fn()
             sync()
-        seconds[name] = time.time() - t0
+        seconds[name] = sp.seconds
         peak[name] = torch.cuda.max_memory_allocated(device) if cuda \
             else None
         return out
 
-    res = stage("pregraph", lambda: run_pregraph_cmd(args, device, mesh))
-    contig, table, _k = stage(
-        "contig", lambda: run_contig_cmd(args, device, res))
-    mres = stage("map", lambda: run_map_cmd(
-        args, device, ctg=contig.contigs, table=table, mesh=mesh))
-    sres = stage("scaff", lambda: run_scaff_cmd(
-        args, device, ctg=contig.contigs, table=table))
-    return AllResult(res, contig, mres, sres, seconds, peak)
+    with profiling.active(timings), timings.span("all"):
+        res = stage("pregraph", lambda: run_pregraph_cmd(args, device, mesh))
+        contig, table, _k = stage(
+            "contig", lambda: run_contig_cmd(args, device, res))
+        mres = stage("map", lambda: run_map_cmd(
+            args, device, ctg=contig.contigs, table=table, mesh=mesh))
+        sres = stage("scaff", lambda: run_scaff_cmd(
+            args, device, ctg=contig.contigs, table=table))
+    return AllResult(res, contig, mres, sres, seconds, peak,
+                     timings.span_totals(), dict(timings.counters))
 
 
 def main(argv=None):
     """Parse ``argv`` and run the subcommand; returns its result: a
     ``PregraphResult``, ``run_contig_cmd``'s tuple, a ``MapResult``, a
-    ``ScaffResult`` or, for ``all``, an ``AllResult``."""
-    from .utils import profiling
-
+    ``ScaffResult`` or, for ``all``, an ``AllResult``.  One
+    ``profiling.StageTimings`` a run records its spans and counters."""
     args = build_parser().parse_args(argv)
     device, mesh = device_from_env(), mesh_from_env()
     timings = profiling.StageTimings()
-    t0 = time.time()
     runs = {"pregraph": lambda: run_pregraph_cmd(args, device, mesh),
             "contig": lambda: run_contig_cmd(args, device),
             "map": lambda: run_map_cmd(args, device, mesh=mesh),
             "scaff": lambda: run_scaff_cmd(args, device)}
-    if args.cmd == "all":  # times its four stages itself
-        res = run_all(args, device, mesh, timings)
-    else:
-        with timings.stage_timer(args.cmd):
-            res = runs[args.cmd]()
+    with profiling.active(timings):
+        if args.cmd == "all":  # times its four stages itself
+            res = run_all(args, device, mesh, timings)
+        else:
+            with timings.stage_timer(args.cmd):
+                res = runs[args.cmd]()
     print(timings.timing_table())
-    print(f"[done] {args.cmd} on {mesh or device} {time.time() - t0:.1f}s")
+    print(f"[done] {args.cmd} on {mesh or device} "
+          f"{sum(timings.seconds.values()):.1f}s")
     return res
 
 

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..ops import bits, dictionary, kmer
+from ..utils import profiling
 
 MAX_MISMATCH_PCT = 10  # overlap-merge tolerance (contigCatch allows ~10%)
 CHOP_ROWS = 1 << 16    # read rows chopped into k-mers at a time
@@ -209,8 +210,6 @@ def fill_gaps(junctions: List[Tuple[str, str, int]],
     code rows of the reads assigned to it (``stages/scaff``'s
     ``collect_gap_reads``).  tol is -G (reference GLDiff, default 50).
     """
-    import time
-
     g_n = len(junctions)
     seconds = {}
     if g_n == 0:
@@ -221,53 +220,55 @@ def fill_gaps(junctions: List[Tuple[str, str, int]],
     if max_steps <= 0:
         max_steps = int(min(max(2 * k + 2 * max(max_gap, 0) + 8, 64), 2048))
 
-    def lap(name, t0):
+    def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        seconds[name] = time.time() - t0
-        return time.time()
+
+    def phase(name):  # scaff's fill phase calls this: scaff.fill.<name>
+        return profiling.phase(seconds, "scaff.fill", name, sync)
 
     # --- host: negative/zero gaps first (overlap merge) ---
-    t0 = time.time()
-    filled = np.zeros(g_n, bool)
-    fill_seq = [""] * g_n
-    overlap = np.zeros(g_n, np.int32)
-    need_asm = []
-    for gi, (left, right, gap) in enumerate(junctions):
-        if gap <= 0:
-            ov = try_overlap_merge(left, right, gap)
-            if ov is not None:
-                filled[gi] = True
-                overlap[gi] = ov
-                continue
-        if len(left) >= k and len(right) >= k:
-            need_asm.append(gi)
-    t0 = lap("overlap", t0)
+    with phase("overlap"):
+        filled = np.zeros(g_n, bool)
+        fill_seq = [""] * g_n
+        overlap = np.zeros(g_n, np.int32)
+        need_asm = []
+        for gi, (left, right, gap) in enumerate(junctions):
+            if gap <= 0:
+                ov = try_overlap_merge(left, right, gap)
+                if ov is not None:
+                    filled[gi] = True
+                    overlap[gi] = ov
+                    continue
+            if len(left) >= k and len(right) >= k:
+                need_asm.append(gi)
     if not need_asm:
         return GapFillResult(filled, fill_seq, overlap, seconds)
 
     # --- device: batched local assembly for the rest ---
-    flank = 2 * k
-    read_rows, read_gid = [], []
-    for slot, gi in enumerate(need_asm):
-        left, right, _ = junctions[gi]
-        rows = [bits.encode_seq(left[-min(len(left), flank + k):]),
-                bits.encode_seq(right[:min(len(right), flank + k)])]
-        rows.extend(gap_reads[gi] if gi < len(gap_reads) else ())
-        read_rows.extend(rows)
-        read_gid.extend([slot] * len(rows))
-    lens = np.fromiter((len(r) for r in read_rows), np.int64, len(read_rows))
-    lmax = max(int(lens.max()), k)
-    codes = np.full((len(read_rows), lmax), 4, np.uint8)
-    codes[np.repeat(np.arange(lens.size), lens),
-          np.arange(lens.sum()) - np.repeat(np.cumsum(lens) - lens, lens)] = \
-        np.concatenate(read_rows).astype(np.uint8)
+    with phase("tables"):
+        flank = 2 * k
+        read_rows, read_gid = [], []
+        for slot, gi in enumerate(need_asm):
+            left, right, _ = junctions[gi]
+            rows = [bits.encode_seq(left[-min(len(left), flank + k):]),
+                    bits.encode_seq(right[:min(len(right), flank + k)])]
+            rows.extend(gap_reads[gi] if gi < len(gap_reads) else ())
+            read_rows.extend(rows)
+            read_gid.extend([slot] * len(rows))
+        lens = np.fromiter((len(r) for r in read_rows), np.int64,
+                           len(read_rows))
+        lmax = max(int(lens.max()), k)
+        codes = np.full((len(read_rows), lmax), 4, np.uint8)
+        codes[np.repeat(np.arange(lens.size), lens),
+              np.arange(lens.sum()) - np.repeat(np.cumsum(lens) - lens,
+                                                lens)] = \
+            np.concatenate(read_rows).astype(np.uint8)
 
-    tables = build_local_tables(*_chop_tagged(
-        codes, lens, np.asarray(read_gid, np.int64), k, device))
-    t0 = lap("tables", t0)
-    succ, ncount = _local_graph(tables, k)
-    t0 = lap("graph", t0)
+        tables = build_local_tables(*_chop_tagged(
+            codes, lens, np.asarray(read_gid, np.int64), k, device))
+    with phase("graph"):
+        succ, ncount = _local_graph(tables, k)
 
     g_slots = len(need_asm)
     gap_ids = torch.arange(g_slots, device=device)[:, None]
@@ -279,48 +280,50 @@ def fill_gaps(junctions: List[Tuple[str, str, int]],
         rows = _lookup_rows(tables, torch.cat([gap_ids, can], -1))
         return torch.where(rows >= 0, 2 * rows + use_rc.to(torch.int64), -1)
 
-    node_s = node_of([junctions[gi][0][-k:] for gi in need_asm])
-    node_t = node_of([junctions[gi][1][:k] for gi in need_asm])
-    ds = _bfs(succ, node_s, max_steps)
-    # distance to the target = distance from the target's twin over the
-    # same graph, read at the twin node (de Bruijn graph duality)
-    dt = _bfs(succ, torch.where(node_t >= 0, node_t ^ 1, -1),
-              max_steps).view(-1, 2).flip(1).reshape(-1)
-    # shortest walk length, start -> target
-    l0 = torch.where(node_t >= 0, ds[node_t.clamp(min=0)], -1).cpu().numpy()
-    t0 = lap("bfs", t0)
-    bases, traced_ok = _trace(succ, ncount, dt, node_s, node_t, max_steps)
-    bases = bases.cpu().numpy()      # (max_steps, slots)
-    traced_ok = traced_ok.cpu().numpy()
-    t0 = lap("trace", t0)
+    with phase("bfs"):
+        node_s = node_of([junctions[gi][0][-k:] for gi in need_asm])
+        node_t = node_of([junctions[gi][1][:k] for gi in need_asm])
+        ds = _bfs(succ, node_s, max_steps)
+        # distance to the target = distance from the target's twin over
+        # the same graph, read at the twin node (de Bruijn graph duality)
+        dt = _bfs(succ, torch.where(node_t >= 0, node_t ^ 1, -1),
+                  max_steps).view(-1, 2).flip(1).reshape(-1)
+        # shortest walk length, start -> target
+        l0 = torch.where(node_t >= 0, ds[node_t.clamp(min=0)],
+                         -1).cpu().numpy()
+    with phase("trace"):
+        bases, traced_ok = _trace(succ, ncount, dt, node_s, node_t,
+                                  max_steps)
+        bases = bases.cpu().numpy()      # (max_steps, slots)
+        traced_ok = traced_ok.cpu().numpy()
 
-    lut = np.frombuffer(bits.BASE_CHARS.encode(), np.uint8)
-    for slot, gi in enumerate(need_asm):
-        length = int(l0[slot])
-        gap = junctions[gi][2]
-        ins_len = length - k
-        if length < 0 or not traced_ok[slot] or \
-                abs(max(ins_len, -k) - gap) > tol + k:
-            continue  # unreachable or outside the distance window
-        filled[gi] = True
-        if ins_len >= 0:
-            fill_seq[gi] = lut[bases[:ins_len, slot]].tobytes().decode()
-        else:
-            # the walk met right's head early: the contigs overlap
-            overlap[gi] = -ins_len
-
-    # --- readsCrossGap fallback (localAsm.c:2035): a single read
-    # anchored by exact K-mers on both flanks bridges the gap ---
-    for gi in need_asm:
-        if filled[gi] or gi >= len(gap_reads):
-            continue
-        left, right, gap = junctions[gi]
-        ins = _read_across(gap_reads[gi], left[-k:], right[:k], gap,
-                           tol + k)
-        if ins is not None:
+    with phase("fallback"):
+        lut = np.frombuffer(bits.BASE_CHARS.encode(), np.uint8)
+        for slot, gi in enumerate(need_asm):
+            length = int(l0[slot])
+            gap = junctions[gi][2]
+            ins_len = length - k
+            if length < 0 or not traced_ok[slot] or \
+                    abs(max(ins_len, -k) - gap) > tol + k:
+                continue  # unreachable or outside the distance window
             filled[gi] = True
-            fill_seq[gi] = ins
-    lap("fallback", t0)
+            if ins_len >= 0:
+                fill_seq[gi] = lut[bases[:ins_len, slot]].tobytes().decode()
+            else:
+                # the walk met right's head early: the contigs overlap
+                overlap[gi] = -ins_len
+
+        # --- readsCrossGap fallback (localAsm.c:2035): a single read
+        # anchored by exact K-mers on both flanks bridges the gap ---
+        for gi in need_asm:
+            if filled[gi] or gi >= len(gap_reads):
+                continue
+            left, right, gap = junctions[gi]
+            ins = _read_across(gap_reads[gi], left[-k:], right[:k], gap,
+                               tol + k)
+            if ins is not None:
+                filled[gi] = True
+                fill_seq[gi] = ins
     return GapFillResult(filled, fill_seq, overlap, seconds)
 
 

@@ -41,13 +41,13 @@ it.
 from __future__ import annotations
 
 import contextlib
-import time
 import warnings
 from typing import Tuple
 
 import torch
 
 from ..kernels import lcs, wave
+from ..utils import profiling
 from . import arcs as arcs_mod
 from . import unitigs
 from .edge_clean import rebuild_arcs
@@ -265,29 +265,29 @@ def pinch(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet,
     m_max, diff = _params_for(merge_level)
     stats = {"backtracked": 0, "compared": 0, "merged": 0, "waves": 0,
              "productive": 0, "seconds": 0.0}
-    t0 = time.time()
-    # a graph without a single arc row has no bubble (and no candidate
-    # for ``_wave`` to shape its chains on)
-    if aset.from_ed.shape[0]:
-        prog = WaveProgram(eg, aset, m_max, diff)
-        while True:
-            stats["waves"] += 1
-            n, over, back, cmp_ = prog.launch().tolist()
-            stats["backtracked"] += back
-            stats["compared"] += cmp_
-            if n == 0:
-                if over == 0:
-                    break
-                # chunk exhausted without a merge: the wave retired it
-                # into ``failed``; the next examines the next chunk
-                continue
-            stats["merged"] += n
-            stats["productive"] += 1
-            # the merge changed the graph: every rejected candidate may
-            # be mergeable now (``apply`` clears the mask)
-            aset = prog.apply()
-        if stats["productive"]:
-            eg = prog.eg
-    stats["seconds"] = time.time() - t0
+    with profiling.span("contig.tourbus") as sp:
+        # a graph without a single arc row has no bubble (and no candidate
+        # for ``_wave`` to shape its chains on)
+        if aset.from_ed.shape[0]:
+            prog = WaveProgram(eg, aset, m_max, diff)
+            while True:
+                stats["waves"] += 1
+                n, over, back, cmp_ = prog.launch().tolist()
+                stats["backtracked"] += back
+                stats["compared"] += cmp_
+                if n == 0:
+                    if over == 0:
+                        break
+                    # chunk exhausted without a merge: the wave retired it
+                    # into ``failed``; the next examines the next chunk
+                    continue
+                stats["merged"] += n
+                stats["productive"] += 1
+                # the merge changed the graph: every rejected candidate may
+                # be mergeable now (``apply`` clears the mask)
+                aset = prog.apply()
+            if stats["productive"]:
+                eg = prog.eg
+    stats["seconds"] = sp.seconds
     stats["s_per_wave"] = stats["seconds"] / max(stats["waves"], 1)
     return eg, aset, stats

@@ -17,11 +17,13 @@ from __future__ import annotations
 
 import gzip
 import io
+import time
 from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
 
 from ..ops.bits import _CHAR2CODE
+from ..utils import profiling
 from . import bam, native
 from .libconfig import Config, LibInfo
 
@@ -107,24 +109,33 @@ def _prefetch(it, depth: int = 2):
     background thread while the caller computes/moves the current one
     — the aio analog (reference initAIO/AIORead,
     prlHashReads.c:709-806).  Both batch producers allocate fresh
-    buffers per yield, so handing them across the thread is safe."""
+    buffers per yield, so handing them across the thread is safe.
+
+    The run's recorder (``utils/profiling``) gets the counter
+    ``reads.decode_s``, the thread's seconds producing each batch, and
+    the span ``reads.wait`` around each wait of the caller for one."""
     import queue
     import threading
 
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     sentinel = object()
+    rec = profiling.recorder()
 
     def worker():
         try:
+            t0 = time.perf_counter()
             for x in it:
+                rec.counter("reads.decode_s", time.perf_counter() - t0)
                 q.put(x)
+                t0 = time.perf_counter()
             q.put(sentinel)
         except BaseException as e:  # re-raised on the consumer side
             q.put(e)
 
     threading.Thread(target=worker, daemon=True).start()
     while True:
-        x = q.get()
+        with rec.span("reads.wait"):
+            x = q.get()
         if x is sentinel:
             return
         if isinstance(x, BaseException):

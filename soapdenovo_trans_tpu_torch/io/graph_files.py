@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..ops import bits, dictionary
+from ..utils import profiling
 
 
 def _host(x) -> np.ndarray:
@@ -112,57 +113,64 @@ def edge_file_ids(edges):
 
 def write_pregraph_files(prefix: str, table, edges, arcs, k: int) -> int:
     """Write .vertex, .edge.gz and .preArc; returns the vertex count
-    (for .preGraphBasic's VERTEX field)."""
-    keys = _host(table.keys)
-    n_e = edges.n_edges
-    from_node = _host(edges.from_node[:n_e])
-    to_node = _host(edges.to_node[:n_e])
-    length = _host(edges.length[:n_e])
-    cvg = _host(edges.cvg[:n_e])
-    twin = _host(edges.twin[:n_e])
-    seq_off = _host(edges.seq_off[:n_e])
-    pool = _host(edges.seq_pool)
+    (for .preGraphBasic's VERTEX field).  Spans: the device-to-host
+    copies ``pregraph.write.host``, then ``pregraph.write.vertex``,
+    ``.edge`` and ``.arc``, one a file."""
+    with profiling.span("pregraph.write.host"):
+        keys = _host(table.keys)
+        n_e = edges.n_edges
+        from_node = _host(edges.from_node[:n_e])
+        to_node = _host(edges.to_node[:n_e])
+        length = _host(edges.length[:n_e])
+        cvg = _host(edges.cvg[:n_e])
+        twin = _host(edges.twin[:n_e])
+        seq_off = _host(edges.seq_off[:n_e])
+        pool = _host(edges.seq_pool)
+        a_n = arcs.n
+        f = _host(arcs.from_ed[:a_n])
+        t = _host(arcs.to_ed[:a_n])
+        m = _host(arcs.mult[:a_n])
 
     # vertex set: canonical rows of all live edge endpoints
-    rows = np.unique(np.concatenate([from_node, to_node]) >> 1)
-    with open(prefix + ".vertex", "w") as fh:
-        for i, r in enumerate(rows):
-            fh.write(_kmer_hex(keys[r], k) + " ")
-            if (i + 1) % 8 == 0:
-                fh.write("\n")
-        fh.write("\n")
+    with profiling.span("pregraph.write.vertex"):
+        rows = np.unique(np.concatenate([from_node, to_node]) >> 1)
+        with open(prefix + ".vertex", "w") as fh:
+            for i, r in enumerate(rows):
+                fh.write(_kmer_hex(keys[r], k) + " ")
+                if (i + 1) % 8 == 0:
+                    fh.write("\n")
+            fh.write("\n")
 
     # edges: rep first, twin implicit
-    file_id, order, _nxt = edge_file_ids(edges)
-    w = bits.words_for_k(k)
-    with gzip.open(prefix + ".edge.gz", "wt") as fh:
-        for e in order:
-            fk = _kmer_hex(_int_to_lanes(
-                _oriented_kmer(keys, int(from_node[e]), k), w), k)
-            tk = _kmer_hex(_int_to_lanes(
-                _oriented_kmer(keys, int(to_node[e]), k), w), k)
-            bal = 0 if int(twin[e]) == e else 1
-            ln = int(length[e])
-            fh.write(f">length {ln},{fk},{tk},cvg {int(cvg[e])}, {bal}\n")
-            s = pool[int(seq_off[e]): int(seq_off[e]) + ln]
-            line = "".join(bits.BASE_CHARS[b] for b in s)
-            for j in range(0, max(ln, 1), 100):
-                fh.write(line[j: j + 100] + "\n")
+    with profiling.span("pregraph.write.edge"):
+        file_id, order, _nxt = edge_file_ids(edges)
+        w = bits.words_for_k(k)
+        with gzip.open(prefix + ".edge.gz", "wt") as fh:
+            for e in order:
+                fk = _kmer_hex(_int_to_lanes(
+                    _oriented_kmer(keys, int(from_node[e]), k), w), k)
+                tk = _kmer_hex(_int_to_lanes(
+                    _oriented_kmer(keys, int(to_node[e]), k), w), k)
+                bal = 0 if int(twin[e]) == e else 1
+                ln = int(length[e])
+                fh.write(f">length {ln},{fk},{tk},cvg {int(cvg[e])}, "
+                         f"{bal}\n")
+                s = pool[int(seq_off[e]): int(seq_off[e]) + ln]
+                line = "".join(bits.BASE_CHARS[b] for b in s)
+                for j in range(0, max(ln, 1), 100):
+                    fh.write(line[j: j + 100] + "\n")
 
-    a_n = arcs.n
-    f = _host(arcs.from_ed[:a_n])
-    t = _host(arcs.to_ed[:a_n])
-    m = _host(arcs.mult[:a_n])
-    by_from: dict = {}
-    for i in range(a_n):
-        by_from.setdefault(int(file_id[f[i]]), []).append(
-            (int(file_id[t[i]]), int(m[i])))
-    with open(prefix + ".preArc", "w") as fh:
-        for fe in sorted(by_from):
-            parts = [str(fe)]
-            for te, mm in by_from[fe]:
-                parts.append(f"{te} {mm}")
-            fh.write(" ".join(parts) + "\n")
+    with profiling.span("pregraph.write.arc"):
+        by_from: dict = {}
+        for i in range(a_n):
+            by_from.setdefault(int(file_id[f[i]]), []).append(
+                (int(file_id[t[i]]), int(m[i])))
+        with open(prefix + ".preArc", "w") as fh:
+            for fe in sorted(by_from):
+                parts = [str(fe)]
+                for te, mm in by_from[fe]:
+                    parts.append(f"{te} {mm}")
+                fh.write(" ".join(parts) + "\n")
     return len(rows)
 
 

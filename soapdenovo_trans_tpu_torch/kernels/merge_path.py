@@ -22,6 +22,7 @@ import os
 import torch
 
 from ..ops import bits
+from ..utils import profiling
 from . import _nvcc
 
 SOURCE = os.path.join(_nvcc.CSRC, "merge_path.cu")
@@ -75,8 +76,10 @@ def _check(rows: torch.Tensor, count: torch.Tensor, device) -> None:
 def merge_sorted_rows(a_rows, a_count, b_rows, b_count, n, m):
     """Merge two ascending (N, 2) row arrays with int32 counts, of which
     rows [0, n) and [0, m) are live (``n``, ``m``: ints or device
-    scalars).  Returns (rows (Na+Nb, 2) int64, count (Na+Nb,) int32)."""
+    scalars).  Returns (rows (Na+Nb, 2) int64, count (Na+Nb,) int32).
+    Adds Na + Nb to the run's counter ``merge_path.rows``."""
     global LAUNCHES
+    profiling.counter("merge_path.rows", a_rows.shape[0] + b_rows.shape[0])
     dev = a_rows.device
     if dev.type == "cpu":
         return merge_sorted_rows_plain(a_rows, a_count, b_rows, b_count,

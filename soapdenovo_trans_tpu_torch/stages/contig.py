@@ -20,13 +20,13 @@ laps (at most 64, as in the JAX package).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, Optional
 
 import torch
 
 from ..graph import arcs as arcs_mod
 from ..graph import bubbles, contig_merge, edge_clean, unitigs
+from ..utils import profiling
 
 MAX_LAPS = 64
 
@@ -72,62 +72,59 @@ def run_contig(edges: unitigs.EdgeGraph, aset: arcs_mod.ArcSet, k: int,
                params: Optional[ContigParams] = None,
                table=None) -> ContigResult:
     """The full cleaning pipeline.  Phase wall times (bubbles, clean,
-    laps, short) land in ``phase_seconds``; Tour-Bus counters in
-    ``tourbus``."""
+    laps, short: the spans ``contig.<phase>``) land in
+    ``phase_seconds``; Tour-Bus counters in ``tourbus``."""
     params = params or ContigParams()
     dev = edges.length.device
     phases: Dict[str, float] = {}
-    t_start = time.time()
 
-    def lap(name, t0):
+    def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        phases[name] = time.time() - t0
 
-    t0 = time.time()
+    def phase(name):
+        return profiling.phase(phases, "contig", name, sync)
+
     stats = {}
-    if params.merge_level > 0 and table is not None:
-        edges, aset, stats = bubbles.bubble_pinch(
-            edges, aset, table, k, params.merge_level)
-    lap("bubbles", t0)
+    with phase("bubbles"):
+        if params.merge_level > 0 and table is not None:
+            edges, aset, stats = bubbles.bubble_pinch(
+                edges, aset, table, k, params.merge_level)
 
-    t0 = time.time()
-    edges = edge_clean.delete_weak_edges(edges, params.weak_cvg)
-    edges = edge_clean.cut_tips(edges, aset, k)
-    aset = edge_clean.compact_arcs(aset, edges)
-    aset = edge_clean.delete_unlike_arcs(aset, edges)
-    aset = edge_clean.delow_high_arc(aset, edges, params.high_arc_multi)
-    ctg = contig_merge.concatenate(edges, aset)
-    edge_contig = ctg.edge2contig
-    graph = _as_edgegraph(ctg)
-    aset = ctg.arcs
-    lap("clean", t0)
+    with phase("clean"):
+        edges = edge_clean.delete_weak_edges(edges, params.weak_cvg)
+        edges = edge_clean.cut_tips(edges, aset, k)
+        aset = edge_clean.compact_arcs(aset, edges)
+        aset = edge_clean.delete_unlike_arcs(aset, edges)
+        aset = edge_clean.delow_high_arc(aset, edges, params.high_arc_multi)
+        ctg = contig_merge.concatenate(edges, aset)
+        edge_contig = ctg.edge2contig
+        graph = _as_edgegraph(ctg)
+        aset = ctg.arcs
 
     def follow(ctg):  # compose the input-edge map with one more merge
         return torch.where(edge_contig >= 0,
                            ctg.edge2contig[edge_contig.clamp(min=0)], -1)
 
-    t0 = time.time()
-    laps = 0
-    for laps in range(1, MAX_LAPS + 1):
-        aset = edge_clean.delete_simple_loops(aset, graph)
-        aset, changed = edge_clean.delete_light_arcs(
-            aset, graph, params.light_out_pct, params.light_flow_pct)
-        if not changed:
-            break
+    with phase("laps"):
+        laps = 0
+        for laps in range(1, MAX_LAPS + 1):
+            aset = edge_clean.delete_simple_loops(aset, graph)
+            aset, changed = edge_clean.delete_light_arcs(
+                aset, graph, params.light_out_pct, params.light_flow_pct)
+            if not changed:
+                break
+            aset = edge_clean.compact_arcs(aset, graph)
+            ctg = contig_merge.concatenate(graph, aset)
+            edge_contig = follow(ctg)
+            graph = _as_edgegraph(ctg)
+            aset = ctg.arcs
+
+    with phase("short"):
+        graph = edge_clean.delete_short_components(
+            graph, aset, params.short_component)
         aset = edge_clean.compact_arcs(aset, graph)
         ctg = contig_merge.concatenate(graph, aset)
         edge_contig = follow(ctg)
-        graph = _as_edgegraph(ctg)
-        aset = ctg.arcs
-    lap("laps", t0)
-
-    t0 = time.time()
-    graph = edge_clean.delete_short_components(
-        graph, aset, params.short_component)
-    aset = edge_clean.compact_arcs(aset, graph)
-    ctg = contig_merge.concatenate(graph, aset)
-    edge_contig = follow(ctg)
-    lap("short", t0)
-    print(f"[contig] {ctg.n} contigs ({time.time() - t_start:.1f}s)")
+    print(f"[contig] {ctg.n} contigs ({sum(phases.values()):.1f}s)")
     return ContigResult(ctg, edge_contig, phases, stats, laps)

@@ -14,7 +14,6 @@ thread pipeline exists for its tunnel.  Neither changes results.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -24,6 +23,7 @@ from ..graph import arcs as arcs_mod
 from ..graph import dbg as dbg_mod
 from ..graph import kmer_clean, unitigs
 from ..ops import dictionary
+from ..utils import profiling
 
 # Build-unit sizing: IO batches aggregate to ~this many k-mer rows per
 # device build (the reference's fill unit is 1e8 k-mers,
@@ -213,48 +213,44 @@ def run_pregraph(batch_iter_factory, k: int, device: torch.device,
             path_recorder_factory)
     phases = {}
 
-    def lap(name, t0):
-        _sync(device)
-        phases[name] = time.time() - t0
-        return phases[name]
+    def phase(name):
+        return profiling.phase(phases, "pregraph", name,
+                               lambda: _sync(device))
 
-    t0 = time.time()
-    table = count_reads(batch_iter_factory(), k, device)
-    print(f"[pregraph] {table.n} distinct kmers "
-          f"({lap('count', t0):.1f}s)")
+    with phase("count"):
+        table = count_reads(batch_iter_factory(), k, device)
+    print(f"[pregraph] {table.n} distinct kmers ({phases['count']:.1f}s)")
     table = delete_low_freq(table, low_freq_cutoff)
 
     if clip_tips:
-        t0 = time.time()
-        table = kmer_clean.clip_tip_kmers(table, k)
-        print(f"[pregraph] kmer tip clipping done "
-              f"({lap('clip', t0):.1f}s)")
+        with phase("clip"):
+            table = kmer_clean.clip_tip_kmers(table, k)
+        print(f"[pregraph] kmer tip clipping done ({phases['clip']:.1f}s)")
 
-    t0 = time.time()
-    edges = unitigs.condense(dbg_mod.build_dbg(table, k), table)
-    print(f"[pregraph] {edges.n_edges} edges ({lap('condense', t0):.1f}s)")
+    with phase("condense"):
+        edges = unitigs.condense(dbg_mod.build_dbg(table, k), table)
+    print(f"[pregraph] {edges.n_edges} edges ({phases['condense']:.1f}s)")
 
-    t0 = time.time()
-    patch = arcs_mod.build_patch(edges, table, k)
-    recorder = path_recorder_factory(edges) if path_recorder_factory \
-        else None
-    forest = arcs_mod.ArcForest(edges.twin)
-    for codes, lengths, _lib in batch_iter_factory():
-        for off in range(0, codes.shape[0], THREAD_ROWS):
-            seqs, lens = _upload(codes[off:off + THREAD_ROWS],
-                                 lengths[off:off + THREAD_ROWS], device)
-            f, t, v = arcs_mod.thread_reads(seqs, lens, table, edges,
-                                            patch, k)
-            if recorder is not None:
-                tr = time.time()
-                n_run, path = arcs_mod.leading_paths(
-                    t, v, seqs.shape[0], recorder.MIN_PATH)
-                recorder.add_paths(n_run.cpu().numpy(), path.cpu().numpy())
-                phases["record"] = phases.get("record", 0.0) + \
-                    time.time() - tr
-            forest.insert(arcs_mod.count_arcs(f, t, v, edges.twin))
-    aset = forest.finish()
-    print(f"[pregraph] {aset.n} preArcs ({lap('thread', t0):.1f}s)")
+    with phase("thread"):
+        patch = arcs_mod.build_patch(edges, table, k)
+        recorder = path_recorder_factory(edges) if path_recorder_factory \
+            else None
+        forest = arcs_mod.ArcForest(edges.twin)
+        for codes, lengths, _lib in batch_iter_factory():
+            for off in range(0, codes.shape[0], THREAD_ROWS):
+                seqs, lens = _upload(codes[off:off + THREAD_ROWS],
+                                     lengths[off:off + THREAD_ROWS], device)
+                f, t, v = arcs_mod.thread_reads(seqs, lens, table, edges,
+                                                patch, k)
+                if recorder is not None:
+                    with profiling.phase(phases, "pregraph", "record"):
+                        n_run, path = arcs_mod.leading_paths(
+                            t, v, seqs.shape[0], recorder.MIN_PATH)
+                        recorder.add_paths(n_run.cpu().numpy(),
+                                           path.cpu().numpy())
+                forest.insert(arcs_mod.count_arcs(f, t, v, edges.twin))
+        aset = forest.finish()
+    print(f"[pregraph] {aset.n} preArcs ({phases['thread']:.1f}s)")
     return PregraphResult(table, edges, patch, aset, k,
                           phase_seconds=phases, n_distinct=table.n)
 
@@ -269,17 +265,15 @@ def _run_pregraph_sharded(batch_iter_factory, k: int, low_freq_cutoff: int,
 
     phases = {}
 
-    def lap(name, t0):
-        mesh.synchronize()
-        phases[name] = time.time() - t0
-        return phases[name]
+    def phase(name):
+        return profiling.phase(phases, "pregraph", name, mesh.synchronize)
 
     moved = (mesh.exchanges, mesh.exchange_bytes)
-    t0 = time.time()
-    st = _count_reads_sharded(batch_iter_factory(), k, mesh)
+    with phase("count"):
+        st = _count_reads_sharded(batch_iter_factory(), k, mesh)
     n_distinct = sum(st.n)
     print(f"[pregraph] {n_distinct} distinct kmers across {mesh.d} resident "
-          f"shards ({lap('count', t0):.1f}s)")
+          f"shards ({phases['count']:.1f}s)")
 
     def low_freq(s, count):
         live = torch.arange(st.cap, device=count.device) < st.n[s]
@@ -289,36 +283,35 @@ def _run_pregraph_sharded(batch_iter_factory, k: int, low_freq_cutoff: int,
     hist = spg.kmer_freq_sharded(mesh, st, deleted)
     routers = spg.Routers.build(mesh, st.cap)
     if clip_tips:
-        t0 = time.time()
-        deleted = spg.clip_tip_kmers_sharded(mesh, routers, st, deleted, k)
-        print(f"[pregraph] kmer tip clipping done "
-              f"({lap('clip', t0):.1f}s)")
+        with phase("clip"):
+            deleted = spg.clip_tip_kmers_sharded(mesh, routers, st, deleted,
+                                                 k)
+        print(f"[pregraph] kmer tip clipping done ({phases['clip']:.1f}s)")
 
-    t0 = time.time()
-    edges, mini_table, node_edge, _node_pos = spg.condense_sharded(
-        mesh, routers, st, deleted, k)
-    print(f"[pregraph] {edges.n_edges} edges ({lap('condense', t0):.1f}s)")
+    with phase("condense"):
+        edges, mini_table, node_edge, _node_pos = spg.condense_sharded(
+            mesh, routers, st, deleted, k)
+    print(f"[pregraph] {edges.n_edges} edges ({phases['condense']:.1f}s)")
 
-    t0 = time.time()
-    patch = arcs_mod.build_patch(edges, mini_table, k)
-    recorder = path_recorder_factory(edges) if path_recorder_factory \
-        else None
-    forest = arcs_mod.ArcForest(edges.twin)
-    for codes, lengths, _lib in batch_iter_factory():
-        f, t, v = spg.thread_reads_sharded(
-            mesh, routers, st, deleted, node_edge, edges, patch, codes,
-            lengths, k)
-        if recorder is not None:
-            tr = time.time()
-            n_run, path = arcs_mod.leading_paths(
-                t, v, t.shape[0] // (2 * (codes.shape[1] - k + 1)),
-                recorder.MIN_PATH)
-            recorder.add_paths(n_run.cpu().numpy(), path.cpu().numpy())
-            phases["record"] = phases.get("record", 0.0) + \
-                time.time() - tr
-        forest.insert(arcs_mod.count_arcs(f, t, v, edges.twin))
-    aset = forest.finish()
-    print(f"[pregraph] {aset.n} preArcs ({lap('thread', t0):.1f}s)")
+    with phase("thread"):
+        patch = arcs_mod.build_patch(edges, mini_table, k)
+        recorder = path_recorder_factory(edges) if path_recorder_factory \
+            else None
+        forest = arcs_mod.ArcForest(edges.twin)
+        for codes, lengths, _lib in batch_iter_factory():
+            f, t, v = spg.thread_reads_sharded(
+                mesh, routers, st, deleted, node_edge, edges, patch, codes,
+                lengths, k)
+            if recorder is not None:
+                with profiling.phase(phases, "pregraph", "record"):
+                    n_run, path = arcs_mod.leading_paths(
+                        t, v, t.shape[0] // (2 * (codes.shape[1] - k + 1)),
+                        recorder.MIN_PATH)
+                    recorder.add_paths(n_run.cpu().numpy(),
+                                       path.cpu().numpy())
+            forest.insert(arcs_mod.count_arcs(f, t, v, edges.twin))
+        aset = forest.finish()
+    print(f"[pregraph] {aset.n} preArcs ({phases['thread']:.1f}s)")
     return PregraphResult(mini_table, edges, patch, aset, k,
                           phase_seconds=phases, freq_hist=hist,
                           n_distinct=n_distinct,

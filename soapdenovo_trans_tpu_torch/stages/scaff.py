@@ -39,7 +39,6 @@ it as the JAX package's tests do.
 from __future__ import annotations
 
 import dataclasses
-import time
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
@@ -790,70 +789,71 @@ def run_scaff(contigs, conn, k: int, table,
     transcript list (-S "scaffold structure exists", scaffold.c:47 —
     resume from .scaf_gap straight into gap closing)."""
     from ..graph import contig_merge, gapfill
+    from ..utils import profiling
 
-    t0 = time.time()
     seconds: Dict[str, float] = {}
     params = params or ScaffParams()
     n_ctg = contigs.n
-    twin = contigs.twin.cpu().numpy()
-    full_len = contigs.length.cpu().numpy() + k
-    if preset_transcripts is not None:
-        transcripts = preset_transcripts
-    else:
-        unique = np.zeros(full_len.shape[0], bool)
-        unique[:n_ctg] = full_len[:n_ctg] >= params.min_unique_len
-        transcripts = build_structure(
-            _host(conn), twin, full_len, unique, contigs.cvg.cpu().numpy(),
-            params, k)
-    t1 = time.time()
-    seconds["structure"] = t1 - t0
+    with profiling.phase(seconds, "scaff", "structure"):
+        twin = contigs.twin.cpu().numpy()
+        full_len = contigs.length.cpu().numpy() + k
+        if preset_transcripts is not None:
+            transcripts = preset_transcripts
+        else:
+            unique = np.zeros(full_len.shape[0], bool)
+            unique[:n_ctg] = full_len[:n_ctg] >= params.min_unique_len
+            transcripts = build_structure(
+                _host(conn), twin, full_len, unique,
+                contigs.cvg.cpu().numpy(), params, k)
 
-    seqs = contig_merge.contig_sequences(contigs, table, k)
-    used = np.zeros(full_len.shape[0], bool)
-    router = ArcRouter(_host(ctg_arcs), full_len, k) \
-        if ctg_arcs is not None else None
+    # (a span, not a phase: ``phase_seconds`` has no key for it)
+    with profiling.span("scaff.routes"):
+        seqs = contig_merge.contig_sequences(contigs, table, k)
+        used = np.zeros(full_len.shape[0], bool)
+        router = ArcRouter(_host(ctg_arcs), full_len, k) \
+            if ctg_arcs is not None else None
 
-    # junctions: (c1, c2, gap), numbered across the transcripts
-    juncs = [(tr.contigs[ji], tr.contigs[ji + 1], tr.gaps[ji])
-             for tr in transcripts for ji in range(len(tr.contigs) - 1)]
+        # junctions: (c1, c2, gap), numbered across the transcripts
+        juncs = [(tr.contigs[ji], tr.contigs[ji + 1], tr.gaps[ji])
+                 for tr in transcripts for ji in range(len(tr.contigs) - 1)]
 
-    # strategy 1: unique arc route through the contig graph.  Routes
-    # are found for every junction (the reference writes them as GAP
-    # lines in .scaf_gap regardless of -F, transcriptome.c:1195-1205);
-    # their SEQUENCE is spliced only under -F — without fillGap the
-    # reference ignores GAP lines entirely and renders Ns
-    # (prlReadFillGap.c:1347-1356: procGap is called only `if (fillGap)`).
-    routes: Dict[int, List[int]] = {}
-    if router is not None:
-        for jid, (c1, c2, gap) in enumerate(juncs):
-            r = router.find_route(c1, c2, gap, params.ins_size_var)
-            if r is not None:
-                routes[jid] = r
+        # strategy 1: unique arc route through the contig graph.  Routes
+        # are found for every junction (the reference writes them as GAP
+        # lines in .scaf_gap regardless of -F, transcriptome.c:1195-1205);
+        # their SEQUENCE is spliced only under -F — without fillGap the
+        # reference ignores GAP lines entirely and renders Ns
+        # (prlReadFillGap.c:1347-1356: procGap is called only
+        # `if (fillGap)`).
+        routes: Dict[int, List[int]] = {}
+        if router is not None:
+            for jid, (c1, c2, gap) in enumerate(juncs):
+                r = router.find_route(c1, c2, gap, params.ins_size_var)
+                if r is not None:
+                    routes[jid] = r
     splice_routes = routes if params.fill_gaps else {}
 
     # strategies 2+3: overlap merge / read-local assembly (-F)
     fill: Dict[int, Tuple[str, str, int]] = {}  # jid -> (kind, seq, ov)
     pending = [jid for jid in range(len(juncs)) if jid not in splice_routes]
     if pending and params.fill_gaps:
-        tc = time.time()
-        if gap_read_source is not None:
-            read_ctg, read_pos, batch_factory = gap_read_source[:3]
-            greads = collect_gap_reads(
-                [juncs[jid] for jid in pending], read_ctg, read_pos,
-                batch_factory, twin, full_len, params.gap_read_window,
-                params.max_reads_per_gap,
-                read_ins=gap_read_source[3] if len(gap_read_source) > 3
-                else None)
-        else:
-            greads = [[] for _ in pending]
-        tf = time.time()
-        res = gapfill.fill_gaps(
-            [(seqs[juncs[jid][0]], seqs[juncs[jid][1]], int(juncs[jid][2]))
-             for jid in pending], greads, k, contigs.length.device,
-            tol=params.gap_len_diff)
-        seconds.update(collect=tf - tc, fill=time.time() - tf,
-                       **{f"fill_{name}": sec
-                          for name, sec in res.phase_seconds.items()})
+        with profiling.phase(seconds, "scaff", "collect"):
+            if gap_read_source is not None:
+                read_ctg, read_pos, batch_factory = gap_read_source[:3]
+                greads = collect_gap_reads(
+                    [juncs[jid] for jid in pending], read_ctg, read_pos,
+                    batch_factory, twin, full_len, params.gap_read_window,
+                    params.max_reads_per_gap,
+                    read_ins=gap_read_source[3] if len(gap_read_source) > 3
+                    else None)
+            else:
+                greads = [[] for _ in pending]
+        with profiling.phase(seconds, "scaff", "fill"):
+            res = gapfill.fill_gaps(
+                [(seqs[juncs[jid][0]], seqs[juncs[jid][1]],
+                  int(juncs[jid][2])) for jid in pending],
+                greads, k, contigs.length.device, tol=params.gap_len_diff)
+        seconds.update({f"fill_{name}": sec
+                        for name, sec in res.phase_seconds.items()})
         for slot, jid in enumerate(pending):
             if res.filled[slot]:
                 ov = int(res.overlap[slot])
@@ -861,81 +861,80 @@ def run_scaff(contigs, conn, k: int, table,
                     ("localasm", res.fill_seq[slot], 0)
 
     # --- splice sequences ---
-    t2 = time.time()
-    recs: List[Tuple[str, str]] = []
-    gap_report: List[Tuple[int, int, str, str]] = []
-    placements: List[List[Tuple[int, int, int, str]]] = []
-    n_runs: Dict[int, int] = {}
-    n_routed = n_filled = 0
-    jid = 0
+    with profiling.phase(seconds, "scaff", "render"):
+        recs: List[Tuple[str, str]] = []
+        gap_report: List[Tuple[int, int, str, str]] = []
+        placements: List[List[Tuple[int, int, int, str]]] = []
+        n_runs: Dict[int, int] = {}
+        n_routed = n_filled = 0
+        jid = 0
 
-    def strand(c):
-        return "+" if c <= int(twin[c]) else "-"
+        def strand(c):
+            return "+" if c <= int(twin[c]) else "-"
 
-    for idx, tr in enumerate(transcripts, start=1):
-        c0 = tr.contigs[0]
-        parts = [seqs[c0]]
-        pos = len(seqs[c0])
-        place = [(c0, 0, pos, strand(c0))]
-        used[c0] = True
+        for idx, tr in enumerate(transcripts, start=1):
+            c0 = tr.contigs[0]
+            parts = [seqs[c0]]
+            pos = len(seqs[c0])
+            place = [(c0, 0, pos, strand(c0))]
+            used[c0] = True
 
-        def put(c, cut):
-            """Append contig c without its first ``cut`` bases."""
-            nonlocal pos
-            parts.append(seqs[c][cut:])
-            place.append((c, pos, len(seqs[c]) - cut, strand(c)))
-            pos += len(seqs[c]) - cut
+            def put(c, cut):
+                """Append contig c without its first ``cut`` bases."""
+                nonlocal pos
+                parts.append(seqs[c][cut:])
+                place.append((c, pos, len(seqs[c]) - cut, strand(c)))
+                pos += len(seqs[c]) - cut
 
-        for ji, c2 in enumerate(tr.contigs[1:]):
-            if jid in splice_routes:
-                for x in splice_routes[jid]:
-                    put(x, k)
-                put(c2, k)
-                n_routed += 1
-                gap_report.append((idx, ji, "route", "".join(
-                    seqs[x][k:] for x in splice_routes[jid])))
-            elif jid in fill:
-                kind, fseq, ov = fill[jid]
-                if kind == "overlap":
-                    put(c2, ov)
+            for ji, c2 in enumerate(tr.contigs[1:]):
+                if jid in splice_routes:
+                    for x in splice_routes[jid]:
+                        put(x, k)
+                    put(c2, k)
+                    n_routed += 1
+                    gap_report.append((idx, ji, "route", "".join(
+                        seqs[x][k:] for x in splice_routes[jid])))
+                elif jid in fill:
+                    kind, fseq, ov = fill[jid]
+                    if kind == "overlap":
+                        put(c2, ov)
+                    else:
+                        parts.append(fseq)
+                        pos += len(fseq)
+                        put(c2, 0)
+                    n_filled += 1
+                    gap_report.append((idx, ji, kind, fseq))
                 else:
-                    parts.append(fseq)
-                    pos += len(fseq)
-                    put(c2, 0)
-                n_filled += 1
-                gap_report.append((idx, ji, kind, fseq))
-            else:
-                # no fill: gapN Ns (the CONNECT gap, min 1) + the next
-                # contig trimmed by cutHead=K — reference outputScafSeq
-                # with initiateCtgInScaf's cutHead=overlaplen default
-                # (prlReadFillGap.c:265-270,637-656); without -F,
-                # procGap never runs so every junction renders this way
-                # (prlReadFillGap.c:1347-1356)
-                gap_n = max(tr.gaps[ji] + k, 1)
-                parts.append("N" * gap_n)
-                pos += gap_n
-                n_runs[jid] = gap_n
-                put(c2, k)
-            used[c2] = True
-            jid += 1
-        seq = "".join(parts)
-        header = (f"scaffold{idx} {len(tr.contigs)} {len(seq)} "
-                  f"Locus_{tr.locus}_{tr.index} {tr.kind}")
-        recs.append((header, seq))
-        placements.append(place)
-    if n_routed or n_filled:
-        print(f"[scaff] gaps closed: {n_routed} arc routes, "
-              f"{n_filled} overlap/local-asm of {len(juncs)}")
+                    # no fill: gapN Ns (the CONNECT gap, min 1) + the next
+                    # contig trimmed by cutHead=K — reference outputScafSeq
+                    # with initiateCtgInScaf's cutHead=overlaplen default
+                    # (prlReadFillGap.c:265-270,637-656); without -F,
+                    # procGap never runs so every junction renders this way
+                    # (prlReadFillGap.c:1347-1356)
+                    gap_n = max(tr.gaps[ji] + k, 1)
+                    parts.append("N" * gap_n)
+                    pos += gap_n
+                    n_runs[jid] = gap_n
+                    put(c2, k)
+                used[c2] = True
+                jid += 1
+            seq = "".join(parts)
+            header = (f"scaffold{idx} {len(tr.contigs)} {len(seq)} "
+                      f"Locus_{tr.locus}_{tr.index} {tr.kind}")
+            recs.append((header, seq))
+            placements.append(place)
+        if n_routed or n_filled:
+            print(f"[scaff] gaps closed: {n_routed} arc routes, "
+                  f"{n_filled} overlap/local-asm of {len(juncs)}")
 
-    # leftover singletons (one per twin pair)
-    for c in range(n_ctg):
-        if used[c] or used[int(twin[c])] or full_len[c] < 100:
-            continue
-        if c > int(twin[c]):
-            continue
-        recs.append((f"C{c}", seqs[c]))
-        used[c] = used[int(twin[c])] = True
-    seconds["render"] = time.time() - t2
+        # leftover singletons (one per twin pair)
+        for c in range(n_ctg):
+            if used[c] or used[int(twin[c])] or full_len[c] < 100:
+                continue
+            if c > int(twin[c]):
+                continue
+            recs.append((f"C{c}", seqs[c]))
+            used[c] = used[int(twin[c])] = True
     return ScaffResult(recs, transcripts, scaf_stats(recs), gap_report,
                        placements, routes, n_runs, seconds, conn.n)
 

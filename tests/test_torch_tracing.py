@@ -1,0 +1,215 @@
+"""The port's spans and counters (``utils/profiling``): a small ``all``
+on the CPU under ``torch.profiler`` puts every span in the exported trace
+as ``soap/<name>``, nested as the program nests them and as long as the
+record says; the stages' ``phase_seconds`` and ``stage_seconds`` are the
+span totals; with no profiler no ``record_function`` is entered; the
+read passes' waits, the decoder's seconds and the merge rows are counted
+where the work happens; counters added from many threads lose nothing."""
+
+import json
+import sys
+import threading
+
+import pytest
+import torch
+
+import perf_e2e
+from soapdenovo_trans_tpu_torch import cli
+from soapdenovo_trans_tpu_torch.io import fastx
+from soapdenovo_trans_tpu_torch.kernels import merge_path
+from soapdenovo_trans_tpu_torch.stages import pregraph
+from soapdenovo_trans_tpu_torch.utils import profiling
+
+# child -> the spans one of which holds each of its intervals
+PARENTS = {
+    "pregraph": ("all",), "contig": ("all",), "map": ("all",),
+    "scaff": ("all",),
+    **{f"pregraph.{p}": ("pregraph",) for p in
+       ("count", "clip", "condense", "thread", "write")},
+    **{f"pregraph.write.{p}": ("pregraph.write",) for p in
+       ("host", "vertex", "edge", "arc")},
+    **{f"contig.{p}": ("contig",) for p in
+       ("bubbles", "clean", "laps", "short", "write")},
+    "map.index": ("map",), "map.reads": ("map",), "map.write": ("map",),
+    "map.vote": ("map.reads",),
+    **{f"scaff.{p}": ("scaff",) for p in
+       ("links", "structure", "routes", "render", "write")},
+    "reads.wait": ("pregraph.count", "pregraph.thread", "map.reads"),
+}
+
+
+def _shrink(mp):
+    """Map batches of 1,024 reads and build units of 4,096: the 5,000
+    reads take one batch in each pregraph pass, five in map's, and two
+    build units, so counting merges."""
+    torch.set_num_threads(1)
+    mp.setenv("SOAPDENOVO_TORCH_DEVICE", "cpu")
+    mp.setattr(cli, "MAP_BATCH", 1024)
+    mp.setattr(pregraph, "TARGET_BUILD_ROWS", 1)
+
+
+@pytest.fixture(autouse=True)
+def _small(monkeypatch):
+    _shrink(monkeypatch)
+
+
+@pytest.fixture(scope="module")
+def reads_cfg(tmp_path_factory):
+    return perf_e2e.synth(str(tmp_path_factory.mktemp("reads")), n_tx=30,
+                          n_pairs=2500, seed=3)
+
+
+def _all(cfg, out, *flags):
+    return cli.main(["all", "-s", cfg, "-K", "23", "-M", "0", *flags,
+                     "-o", str(out)])
+
+
+class _Counted:
+    """A wrapper that counts the calls of the function it wraps."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        return self.fn(*args, **kwargs)
+
+
+@pytest.fixture(scope="module")
+def traced(reads_cfg, tmp_path_factory):
+    """One ``all`` under the profiler: (result, the trace's ``soap/``
+    events by name, record_function entries, batches and passes of the
+    read-ahead, rows of every merge call)."""
+    tmp = tmp_path_factory.mktemp("traced")
+    seen = {"batches": 0, "passes": 0, "merge_rows": 0}
+    read_batches = fastx.config_read_batches
+    merge = merge_path.merge_sorted_rows
+
+    def batches(*args, **kwargs):
+        seen["passes"] += 1
+        for x in read_batches(*args, **kwargs):
+            seen["batches"] += 1
+            yield x
+
+    def merge_rows(*args):
+        seen["merge_rows"] += args[0].shape[0] + args[2].shape[0]
+        return merge(*args)
+
+    rf = _Counted(torch.profiler.record_function)
+    with pytest.MonkeyPatch.context() as mp:
+        _shrink(mp)
+        mp.setattr(fastx, "config_read_batches", batches)
+        mp.setattr(merge_path, "merge_sorted_rows", merge_rows)
+        mp.setattr(torch.profiler, "record_function", rf)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            res = _all(reads_cfg, tmp / "out")
+    path = tmp / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = {}
+    for ev in json.loads(path.read_text())["traceEvents"]:
+        name = ev.get("name", "")
+        if ev.get("ph") == "X" and name.startswith(profiling.PREFIX):
+            start = float(ev["ts"])
+            events.setdefault(name[len(profiling.PREFIX):], []).append(
+                (start, start + float(ev["dur"])))
+    return res, events, rf.calls, seen
+
+
+def test_every_span_is_in_the_trace_inside_its_parent(traced):
+    res, events, entered, _ = traced
+    assert set(events) == set(res.spans) >= set(PARENTS) | {"all"}
+    assert entered == sum(calls for _, calls in res.spans.values())
+    for name, parents in PARENTS.items():
+        holders = [iv for p in parents for iv in events[p]]
+        for s, e in events[name]:
+            assert any(ps <= s and e <= pe for ps, pe in holders), name
+
+
+def test_trace_durations_match_the_record(traced):
+    res, events, _, _ = traced
+    for name, (seconds, calls) in res.spans.items():
+        assert len(events[name]) == calls, name
+        traced_s = sum(e - s for s, e in events[name]) / 1e6
+        assert abs(traced_s - seconds) <= max(0.05 * seconds, 0.010), name
+
+
+def _span_of(stage, key):
+    """The span a phase key reads (gap filling's phases nest in fill)."""
+    return f"{stage}.{key}".replace("scaff.fill_", "scaff.fill.")
+
+
+@pytest.mark.parametrize("devices,flags", [
+    ("cpu", ()), ("cpu", ("-F",)), ("cpu,cpu", ())],
+    ids=["one_device", "fill", "mesh"])
+def test_phase_and_stage_seconds_are_the_span_totals(
+        reads_cfg, tmp_path, monkeypatch, devices, flags):
+    monkeypatch.setenv("SOAPDENOVO_TORCH_DEVICE", devices)
+    res = _all(reads_cfg, tmp_path / "out", *flags)
+    assert set(res.stage_seconds) == {"pregraph", "contig", "map", "scaff"}
+    for stage, secs in res.stage_seconds.items():
+        assert res.spans[stage] == (pytest.approx(secs, abs=1e-12), 1)
+    for stage, phases in (("pregraph", res.pregraph.phase_seconds),
+                          ("contig", res.contig.phase_seconds),
+                          ("map", res.map.phase_seconds),
+                          ("scaff", res.scaff.phase_seconds)):
+        assert phases
+        for key, secs in phases.items():
+            got = res.spans[_span_of(stage, key)][0]
+            assert got == pytest.approx(secs, abs=1e-12), (stage, key)
+    assert ("scaff.fill" in res.spans) == ("-F" in flags)
+    assert res.spans["map.vote"][1] >= 5  # one a batch of the map pass
+
+
+def test_no_profiler_enters_no_record_function(reads_cfg, tmp_path,
+                                               monkeypatch):
+    rf = _Counted(torch.profiler.record_function)
+    monkeypatch.setattr(torch.profiler, "record_function", rf)
+    res = _all(reads_cfg, tmp_path / "out")
+    assert rf.calls == 0
+    assert res.spans["all"][1] == 1 and res.spans["reads.wait"][1] > 0
+
+
+def test_read_waits_decode_seconds_and_merge_rows(traced):
+    res, _, _, seen = traced
+    # count, thread and map passes; each ends with one more step, the
+    # wait for the end of the stream
+    assert seen["passes"] == 3 and seen["batches"] == 1 + 1 + 5
+    assert res.spans["reads.wait"][1] == seen["batches"] + seen["passes"]
+    assert res.counters["reads.decode_s"] > 0
+    assert seen["merge_rows"] > 0
+    assert res.counters["merge_path.rows"] == seen["merge_rows"]
+
+
+def test_spans_and_counters_go_to_the_active_recorder_only():
+    rec = profiling.StageTimings()
+    with profiling.span("nowhere"):
+        pass
+    profiling.counter("nowhere", 1)
+    with pytest.raises(KeyError), profiling.active(rec):
+        with profiling.span("x") as sp:
+            profiling.counter("n", 2)
+            raise KeyError("a failed step is still timed")
+    with profiling.span("nowhere"):
+        pass
+    assert rec.span_totals() == {"x": (sp.seconds, 1)}
+    assert rec.counters == {"n": 2} and not rec.seconds
+
+
+def test_counters_from_many_threads_lose_nothing():
+    rec = profiling.StageTimings()
+    n_threads, n_adds = 16, 2000
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            rec.counter("c", 1) for _ in range(n_adds)])
+            for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert rec.counters["c"] == n_threads * n_adds

@@ -12,8 +12,8 @@ profiler), the second under the profiler.  The stage's Tour-Bus waves
 run as one wave program (``graph/tourbus.WaveProgram``): the first wave
 eagerly, the rest as replays of one captured CUDA graph.  Prints the
 stage's seconds, the Tour-Bus waves and seconds a wave, the captures and
-replays, the device-busy share of the profiled stage (the sum of kernel
-time over wall time), the kernels executed a wave and the graph launches
+replays, the device-busy share of the profiled stage (the union of
+kernel, copy and memset intervals over wall time), the kernels executed a wave and the graph launches
 (``cudaGraphLaunch`` calls) a wave, the device time a launch of each
 kernel of ``csrc/lcs.cu`` and ``csrc/wave.cu`` a wave runs (the front's
 eight, the identity check, the back's four; a tree from before the front

@@ -7,8 +7,8 @@ PyTorch port's ``pregraph`` on logical shards of one CUDA card.
 Simulated reads (``perf_e2e.synth``, seed 0, 100 pairs a transcript;
 default 100,000 pairs), K = 23, through ``cli.main`` with
 ``SOAPDENOVO_TORCH_DEVICE=cuda:0,...`` (default 4 shards).  Prints the
-stage's seconds by phase, the device-busy share of the stage (the sum of
-kernel time over wall time) and the twelve kernels with the most device
+stage's seconds by phase, the device-busy share of the stage (the union
+of kernel, copy and memset intervals over wall time) and the twelve kernels with the most device
 time; the last line is a JSON object of the same.  Imports nothing of
 JAX.
 """
