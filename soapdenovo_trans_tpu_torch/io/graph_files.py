@@ -29,6 +29,17 @@ return the port's state on a given device.
 
 Hex follows the compile-time MER variant the reference would use for
 this K: one u64 for K<=31, "high low" for K<=63, four words for K<=127.
+
+The pregraph writer builds each of its three files as one ``np.uint8``
+buffer by whole-array operations, with no loop over records or bases:
+every field is an (n, width) byte column, as wide as its largest value,
+with a mask that drops leading zeros (and a literal's absent cases); a
+file is the columns' row-major boolean compaction.  ``.edge.gz`` places
+its headers and its bases (a 4-byte lookup of the pool) by index
+arithmetic, every other byte a newline, in blocks of records of about
+a million bases, each block's text written on into one level-9 gzip
+member (span ``pregraph.write.edge.deflate``); ``.preArc`` groups the
+arc rows by a stable sort on the from-edge's file id.
 """
 
 from __future__ import annotations
@@ -80,42 +91,157 @@ def _revcomp_int(v: int, k: int) -> int:
     return out
 
 
-def _oriented_kmer(table_keys: np.ndarray, node: int, k: int) -> int:
-    """Directed node id (2*row + s) -> oriented kmer integer."""
-    row, s = node >> 1, node & 1
-    v = _lanes_to_int(table_keys[row])
-    return _revcomp_int(v, k) if s else v
+# -- text as byte columns ------------------------------------------------
+# A field of n records is an (n, width) uint8 table and a mask of the
+# bytes it keeps; a record's text is its row of the concatenated
+# columns, masked bytes dropped, so a file is one boolean compaction.
+
+_HEX_DIGITS = np.frombuffer(b"0123456789abcdef", np.uint8)
+_BASE_BYTES = np.frombuffer(bits.BASE_CHARS.encode(), np.uint8)
+_BLOCK_BASES = 1 << 20
+
+
+def _lit(text: bytes, n: int, where=None):
+    """A literal in every record, or only where ``where`` holds."""
+    chars = np.broadcast_to(np.frombuffer(text, np.uint8), (n, len(text)))
+    keep = np.ones((n, 1), bool) if where is None else where[:, None]
+    return chars, np.broadcast_to(keep, chars.shape)
+
+
+def _digits(d: np.ndarray):
+    """(n, w) digit values, most significant first -> their characters
+    without leading zeros (the last digit always kept), the columns no
+    record keeps cut off."""
+    keep = np.logical_or.accumulate(d != 0, axis=1)
+    keep[:, -1] = True
+    first = int(np.argmax(keep.any(0)))
+    return _HEX_DIGITS[d[:, first:]], keep[:, first:]
+
+
+def _dec(v: np.ndarray, where=None) -> list:
+    """Decimal columns of int64 ``v`` (``str(int)``), as wide as its
+    largest value; only where ``where`` holds, if given."""
+    v = np.asarray(v, np.int64)
+    mag = np.abs(v)
+    width = len(str(int(mag.max()))) if mag.size else 1
+    pow10 = 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)
+    chars, keep = _digits((mag[:, None] // pow10) % 10)
+    cols = [_lit(b"-", v.shape[0], v < 0), (chars, keep)]
+    if where is not None:
+        cols = [(c, k & where[:, None]) for c, k in cols]
+    return cols
+
+
+def _hex(lanes: np.ndarray, k: int) -> list:
+    """print_kmer columns of (n, W) k-mer lanes (kmer.c:499-516), as
+    ``_kmer_hex`` writes one: ``_n_u64(k)`` 64-bit words, each lowercase
+    without leading zeros, a space between words; ``0x0`` for a zero
+    k-mer in the one-word form (the MER31 quirk)."""
+    n, w = lanes.shape
+    nu = _n_u64(k)
+    padded = np.zeros((n, 2 * nu), np.int64)
+    padded[:, 2 * nu - w:] = lanes
+    nib = (padded[:, :, None] >> np.arange(28, -1, -4)) & 15
+    nib = nib.reshape(n, nu, 16)
+    cols = [_lit(b"0x", n, ~nib[:, 0].any(1))] if nu == 1 else []
+    for i in range(nu):
+        if i:
+            cols.append(_lit(b" ", n))
+        cols.append(_digits(nib[:, i]))
+    return cols
+
+
+def _records(cols: list):
+    """Concatenate the columns record by record, drop the masked bytes:
+    (the records' text as one uint8 buffer, each record's length)."""
+    chars = np.concatenate([c for c, _ in cols], axis=1)
+    keep = np.concatenate([k for _, k in cols], axis=1)
+    return chars[keep], keep.sum(1)
+
+
+def _oriented_lanes(keys: torch.Tensor, nodes: torch.Tensor,
+                    k: int) -> np.ndarray:
+    """Directed node ids (2*row + s) -> oriented k-mer lanes, (n, W), on
+    the host: the table row, reverse-complemented where s is set; the
+    gather runs where ``keys`` and ``nodes`` are."""
+    km = keys[nodes.clamp(min=0) >> 1]
+    rc = ((nodes & 1) == 1)[:, None]
+    return torch.where(rc, bits.reverse_complement(km, k), km).cpu().numpy()
+
+
+def _edge_text(head_cols: list, ln: np.ndarray, seq_off: np.ndarray,
+               pool: np.ndarray) -> np.ndarray:
+    """The .edge.gz text of some records: each its header, then its
+    bases 100 a line (a 4-byte lookup of the pool), each line ended by
+    a newline, one empty line for no bases; every byte that is neither
+    a header's nor a base's is a newline."""
+    head, head_len = _records(head_cols)
+    n_lines = np.maximum((ln + 99) // 100, 1)
+    rec_len = head_len + ln + n_lines
+    rec_at = np.cumsum(rec_len) - rec_len
+    buf = np.full(int(rec_len.sum()), ord("\n"), np.uint8)
+    buf[np.repeat(rec_at - (np.cumsum(head_len) - head_len), head_len)
+        + np.arange(head.shape[0])] = head
+    j = np.arange(int(ln.sum())) - np.repeat(np.cumsum(ln) - ln, ln)
+    buf[np.repeat(rec_at + head_len, ln) + j + j // 100] = _BASE_BYTES[
+        pool[np.repeat(seq_off, ln) + j]]
+    return buf
 
 
 def edge_file_ids(edges):
     """Edge row -> 1-based .edge.gz file id (rep first, twin = id+1 —
     the reference loader's bal_edge convention, loadPreGraph.c:543).
-    Returns (file_id (n_e,) int64, rep rows in file order, next id)."""
-    n_e = edges.n_edges
-    twin = _host(edges.twin[:n_e])
-    file_id = np.zeros(n_e, np.int64)
-    nxt = 1
-    order: List[int] = []
-    for e in range(n_e):
+    Returns (file_id (n_e,) int64, rep rows in file order (int64), next
+    id).  The rule is sequential: in row order, a palindrome takes one
+    id, a row no earlier rep named as its twin takes two (itself, then
+    its twin).  Rows whose twins form an involution follow it by array
+    operations; the rule itself runs, in row order, only where a twin is
+    not an involution: on such a row, its twin and its twin's twin.  No
+    other row names one of these as its twin, so the two sets keep to
+    themselves."""
+    n = edges.n_edges
+    twin = _host(edges.twin[:n])
+    row = np.arange(n)
+    in_range = (twin >= 0) & (twin < n)
+    pal = twin == row
+    invol = in_range & (twin[np.where(in_range, twin, row)] == row)
+    rep = invol & (row <= twin)
+    odd = ~invol
+    for _ in range(2):  # a non-involutive row's twin, then that twin's
+        odd[twin[odd & in_range]] = True
+    odd = np.flatnonzero(odd)
+    claimed = np.zeros(n, bool)
+    for e in odd.tolist():
         t = int(twin[e])
-        if t == e:
-            file_id[e] = nxt
-            order.append(e)
-            nxt += 1
-        elif file_id[e] == 0:
-            file_id[e] = nxt
-            if 0 <= t < n_e:
-                file_id[t] = nxt + 1
-            order.append(e)
-            nxt += 2
-    return file_id, order, nxt
+        rep[e] = t == e or not claimed[e]
+        if rep[e] and t != e and 0 <= t < n:
+            claimed[t] = True
+    step = np.where(rep, np.where(pal, 1, 2), 0)
+    first = np.cumsum(step) - step + 1
+    file_id = np.zeros(n, np.int64)
+    clean = rep.copy()
+    clean[odd] = False
+    file_id[clean] = first[clean]
+    pair = clean & ~pal
+    file_id[twin[pair]] = first[pair] + 1
+    for e in odd[rep[odd]].tolist():
+        t = int(twin[e])
+        file_id[e] = first[e]
+        if t != e and 0 <= t < n:
+            file_id[t] = first[e] + 1
+    return file_id, np.flatnonzero(rep), int(1 + step.sum())
 
 
 def write_pregraph_files(prefix: str, table, edges, arcs, k: int) -> int:
     """Write .vertex, .edge.gz and .preArc; returns the vertex count
-    (for .preGraphBasic's VERTEX field).  Spans: the device-to-host
-    copies ``pregraph.write.host``, then ``pregraph.write.vertex``,
-    ``.edge`` and ``.arc``, one a file."""
+    (for .preGraphBasic's VERTEX field).  Each file is built as one
+    uint8 buffer by whole-array operations (fields as byte columns, one
+    boolean compaction; bases by a lookup, newlines by index arithmetic)
+    and written in one call; .edge.gz is one gzip member at level 9, its
+    text built and written a block of records at a time.  Spans: the
+    device-to-host copies ``pregraph.write.host``, then
+    ``pregraph.write.vertex``, ``.edge`` (its gzip writes of the blocks'
+    text ``pregraph.write.edge.deflate``) and ``.arc``, one a file."""
     with profiling.span("pregraph.write.host"):
         keys = _host(table.keys)
         n_e = edges.n_edges
@@ -131,46 +257,53 @@ def write_pregraph_files(prefix: str, table, edges, arcs, k: int) -> int:
         t = _host(arcs.to_ed[:a_n])
         m = _host(arcs.mult[:a_n])
 
-    # vertex set: canonical rows of all live edge endpoints
+    # vertex set: canonical rows of all live edge endpoints; 8 a line
     with profiling.span("pregraph.write.vertex"):
         rows = np.unique(np.concatenate([from_node, to_node]) >> 1)
-        with open(prefix + ".vertex", "w") as fh:
-            for i, r in enumerate(rows):
-                fh.write(_kmer_hex(keys[r], k) + " ")
-                if (i + 1) % 8 == 0:
-                    fh.write("\n")
-            fh.write("\n")
+        eighth = np.arange(1, len(rows) + 1) % 8 == 0
+        text, _ = _records(_hex(keys[rows], k) + [
+            _lit(b" ", len(rows)), _lit(b"\n", len(rows), eighth)])
+        with open(prefix + ".vertex", "wb") as fh:
+            fh.write(text.tobytes() + b"\n")
 
-    # edges: rep first, twin implicit
+    # edges: rep first, twin implicit; built and deflated in blocks of
+    # about _BLOCK_BASES bases, so the host's index arrays stay small
     with profiling.span("pregraph.write.edge"):
         file_id, order, _nxt = edge_file_ids(edges)
-        w = bits.words_for_k(k)
-        with gzip.open(prefix + ".edge.gz", "wt") as fh:
-            for e in order:
-                fk = _kmer_hex(_int_to_lanes(
-                    _oriented_kmer(keys, int(from_node[e]), k), w), k)
-                tk = _kmer_hex(_int_to_lanes(
-                    _oriented_kmer(keys, int(to_node[e]), k), w), k)
-                bal = 0 if int(twin[e]) == e else 1
-                ln = int(length[e])
-                fh.write(f">length {ln},{fk},{tk},cvg {int(cvg[e])}, "
-                         f"{bal}\n")
-                s = pool[int(seq_off[e]): int(seq_off[e]) + ln]
-                line = "".join(bits.BASE_CHARS[b] for b in s)
-                for j in range(0, max(ln, 1), 100):
-                    fh.write(line[j: j + 100] + "\n")
+        n_r = len(order)
+        ends = _oriented_lanes(torch.from_numpy(keys), torch.from_numpy(
+            np.concatenate([from_node[order], to_node[order]])), k)
+        ln = length[order]
+        upto = np.cumsum(ln)
+        cuts = np.unique(np.concatenate([[0], np.searchsorted(
+            upto, np.arange(_BLOCK_BASES, upto[-1] if n_r else 0,
+                            _BLOCK_BASES), side="right"), [n_r]]))
+        with gzip.open(prefix + ".edge.gz", "wb", compresslevel=9) as fh:
+            for lo, hi in zip(cuts[:-1], cuts[1:]):
+                rep, n = order[lo:hi], hi - lo
+                text = _edge_text(
+                    [_lit(b">length ", n)] + _dec(ln[lo:hi])
+                    + [_lit(b",", n)] + _hex(ends[lo:hi], k)
+                    + [_lit(b",", n)] + _hex(ends[n_r + lo:n_r + hi], k)
+                    + [_lit(b",cvg ", n)] + _dec(cvg[rep])
+                    + [_lit(b", ", n)] + _dec(twin[rep] != rep)
+                    + [_lit(b"\n", n)], ln[lo:hi], seq_off[rep], pool)
+                with profiling.span("pregraph.write.edge.deflate"):
+                    fh.write(text)
 
+    # arcs: one line a from-edge, ascending; its to-edges in row order
     with profiling.span("pregraph.write.arc"):
-        by_from: dict = {}
-        for i in range(a_n):
-            by_from.setdefault(int(file_id[f[i]]), []).append(
-                (int(file_id[t[i]]), int(m[i])))
-        with open(prefix + ".preArc", "w") as fh:
-            for fe in sorted(by_from):
-                parts = [str(fe)]
-                for te, mm in by_from[fe]:
-                    parts.append(f"{te} {mm}")
-                fh.write(" ".join(parts) + "\n")
+        by_from = np.argsort(file_id[f], kind="stable")
+        fe, te, mm = file_id[f][by_from], file_id[t][by_from], m[by_from]
+        lead = np.ones(a_n, bool)
+        lead[1:] = fe[1:] != fe[:-1]
+        tail = np.ones(a_n, bool)
+        tail[:-1] = lead[1:]
+        text, _ = _records(
+            _dec(fe, lead) + [_lit(b" ", a_n)] + _dec(te)
+            + [_lit(b" ", a_n)] + _dec(mm) + [_lit(b"\n", a_n, tail)])
+        with open(prefix + ".preArc", "wb") as fh:
+            fh.write(text.tobytes())
     return len(rows)
 
 
@@ -380,13 +513,6 @@ def load_pregraph_files(prefix: str, device):
     return table, edges, aset, k
 
 
-def _oriented_lanes(table, nodes: torch.Tensor, k: int) -> np.ndarray:
-    """Directed node ids (2*row + s) -> oriented k-mer lanes, (n, W)."""
-    km = table.keys[nodes.clamp(min=0) >> 1]
-    rc = ((nodes & 1) == 1)[:, None]
-    return torch.where(rc, bits.reverse_complement(km, k), km).cpu().numpy()
-
-
 def write_contig_graph_files(prefix: str, ctg, table, k: int,
                              perm: List[int]) -> None:
     """.updated.edge + .Arc in the .contig/.ContigIndex numbering
@@ -395,8 +521,8 @@ def write_contig_graph_files(prefix: str, ctg, table, k: int,
     length = _host(ctg.length[:n])
     cvg = _host(ctg.cvg[:n])
     twin = _host(ctg.twin[:n])
-    from_km = _oriented_lanes(table, ctg.from_node[:n], k)
-    to_km = _oriented_lanes(table, ctg.to_node[:n], k)
+    from_km = _oriented_lanes(table.keys, ctg.from_node[:n], k)
+    to_km = _oriented_lanes(table.keys, ctg.to_node[:n], k)
     new_of = np.zeros(n, np.int64)
     new_of[np.asarray(perm, np.int64)] = np.arange(1, len(perm) + 1)
 

@@ -28,6 +28,7 @@ PARENTS = {
        ("count", "clip", "condense", "thread", "write")},
     **{f"pregraph.write.{p}": ("pregraph.write",) for p in
        ("host", "vertex", "edge", "arc")},
+    "pregraph.write.edge.deflate": ("pregraph.write.edge",),
     **{f"contig.{p}": ("contig",) for p in
        ("bubbles", "clean", "laps", "short", "write")},
     "map.index": ("map",), "map.reads": ("map",), "map.write": ("map",),
