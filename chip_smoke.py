@@ -559,10 +559,10 @@ def back_bound_ms(inputs, counts) -> tuple:
     read and written (48 B).  When nothing merged: ok, compared and cmask
     (3 B a row), the cid_arc entry and the failed byte of each row it
     marks (9 B), and the counts (48 B)."""
-    ok, cmask = inputs[5], inputs[16]
+    ok, cmask = inputs[5], inputs[18]
     c = ok.shape[0]
     if int(counts[0]):
-        moved, ops = claim_work(inputs[:15])
+        moved, ops = claim_work(inputs[:17])
         return bound_of(moved + 2 * c + 48, ops)
     return bound_of(3 * c + 9 * int((cmask & ~ok).sum()) + 48, 0)
 
@@ -640,24 +640,24 @@ def check_back(wave, cases, inputs) -> tuple:
 def check_entries(wave, cases, front_in, back_in) -> tuple:
     """The four entries of csrc/wave.cu against their plain versions on
     one wave's front and back inputs: chains on the forest and the rows
-    of the plain front, claim_apply on the back's first 15 inputs; the
+    of the plain front, claim_apply on the back's first 17 inputs; the
     back's cid_arc, cmask and n_cand must be the plain front's.  Returns (max abs error, which must be 0, each entry's inputs, the
     plain outputs of the front, the back and chains)."""
     err_f, want_f = check_front(wave, cases, front_in)
     err_b, want_b = check_back(wave, cases, back_in)
     # the back's inputs hold the rows the front gave on its inputs
-    if not (torch.equal(want_f[0], back_in[17])
-            and torch.equal(want_f[1], back_in[16])
-            and int(want_f[11]) == int(back_in[18])):
+    if not (torch.equal(want_f[0], back_in[19])
+            and torch.equal(want_f[1], back_in[18])
+            and int(want_f[11]) == int(back_in[20])):
         raise AssertionError("the back's cid_arc, cmask or n_cand differ "
                              "from the plain front's on the same wave")
     prev = wave.candidates_plain(*front_in[:3], *front_in[4:8],
                                  front_in[9])[0]
     _cid, cmask, u, t0 = want_f[:4]
     chains_in = (prev, u, t0, cmask, front_in[3], front_in[8])
-    err_c, want_c = check_wave(wave, cases, chains_in, back_in[:15])
+    err_c, want_c = check_wave(wave, cases, chains_in, back_in[:17])
     inputs = {"front": front_in, "back": back_in, "chains": chains_in,
-              "claim_apply": back_in[:15]}
+              "claim_apply": back_in[:17]}
     return (max(err_f, err_b, err_c), inputs,
             {"front": want_f, "back": want_b, "chains": want_c})
 

@@ -71,14 +71,24 @@
 //     cvg2, deleted2 and the new arc rows are left undefined (no caller
 //     reads them when nothing merged: the JAX pinch, WaveProgram.apply).
 //   claim_kernel, apply_kernel, arcs_kernel as claim_apply_launch runs
-//     them, n_merged going to counts[0]; each ok candidate that holds the
-//     least (rank, candidate) of every edge it claims wins, rank the
-//     minority path's coverage; each winner deletes its minority nodes and
-//     their twins, adds their coverage onto the majority node that covers
-//     each one's midpoint (the last majority node if none does) and on that
-//     node's twin, and remaps them onto it; every arc row is remapped, the
-//     self-loops this creates dropped (a row whose original from and to
-//     were equal is kept), cvg2 clamped into [0, MAX_EDGE_COV].
+//     them, n_merged going to counts[0] and the dropped rows to counts[4];
+//     each ok candidate that holds the least (rank, candidate) of every
+//     edge it claims wins, rank the minority path's coverage; each winner
+//     deletes its minority nodes and their twins, adds their coverage onto
+//     the majority node that covers each one's midpoint (the last majority
+//     node if none does) and on that node's twin, and maps them onto it
+//     (remap; -1 where the path has no majority node) and onto itself
+//     (owner, written at the same nodes).  arcs_kernel, one thread a row:
+//     a row with a minority node at either end is dropped where its other
+//     end is an edge the same winner claims (the bubble's own fork, join
+//     and path arcs and their twins: Claims::holds on the winner's list),
+//     where the node has no cover, and where the remapped row would not
+//     join (to_node[from] != from_node[to]); the others are remapped, the
+//     self-loops the remap makes dropped (a row whose original from and to
+//     were equal is kept unless the rule drops it); cvg2 clamped into [0,
+//     MAX_EDGE_COV].  The JAX wave remaps every row of a minority node and
+//     drops only those self-loops, which can join a fork to a cover or a
+//     cover to the join past a majority node.
 // The back writes new buffers, not the pinch's cvg and deleted in place:
 // applying in place would save WaveProgram.apply two copies in productive
 // waves only (721 of 7,968 in the 500k-pair stage), and the win test reads
@@ -98,7 +108,8 @@
 // is ok (91% of the 500k-pair stage's waves), must read ok, compared and
 // cmask (3 B a row) and cid_arc of the rows it marks: a few KB, one block
 // and three empty launches, so the launches set its time.  In a productive
-// wave it moves what claim_apply moves: about 18·E + 48·A B.
+// wave it moves what claim_apply moves: about 18·E + 48·A B, and the end
+// nodes of the rows it remaps.
 // claim_apply_launch, three kernels as above without the gate and with
 // n_merged of its own, and chains_launch, a memset and chains_kernel, stay
 // as the first entries, held against their plain versions.
@@ -634,6 +645,13 @@ struct Claims {
     return ends[c * 4 + k - m];
   }
   __device__ __forceinline__ int count() const { return 4 * m + 4; }
+  // whether candidate c claims edge x (no edge for x < 0)
+  __device__ __forceinline__ bool holds(long long c, long long x) const {
+    if (c < 0 || x < 0) return false;
+    for (int k = 0; k < count(); ++k)
+      if (at(c, k) == x) return true;
+    return false;
+  }
 };
 
 // rank·2^32 + c, rank the coverage of the minority path's nodes
@@ -685,6 +703,7 @@ __global__ void back_head_kernel(
     counts[1] = over > 0 ? over : 0;
     counts[2] = *n_back;
     counts[3] = (long long)n_cmp;
+    counts[4] = 0;
     *gate = any_ok;
   }
 }
@@ -730,6 +749,7 @@ __global__ void apply_kernel(Claims cl, const unsigned char* __restrict__ ok,
                              long long* __restrict__ cvg2,
                              unsigned char* __restrict__ deleted2,
                              long long* __restrict__ remap,
+                             int* __restrict__ owner,
                              u64* __restrict__ n_merged,
                              const int* __restrict__ gate, long long c,
                              long long e) {
@@ -783,12 +803,18 @@ __global__ void apply_kernel(Claims cl, const unsigned char* __restrict__ ok,
     if (tcv >= 0 && tcv < e)
       atomicAdd(reinterpret_cast<u64*>(cvg2 + tcv),
                 (u64)gather_or(cvg, e, tmn[r], 0));
-    if (mn[r] >= 0 && mn[r] < e) remap[mn[r]] = cv > 0 ? cv : 0;
+    if (mn[r] >= 0 && mn[r] < e) {
+      remap[mn[r]] = cv;  // -1: no cover
+      owner[mn[r]] = (int)i;
+    }
   }
   // the twins' remap after the nodes', as the plain version writes them
   for (int r = 0; r < m; ++r) {
     const long long tcv = gather_or(twin, e, cover[r], -1);
-    if (tmn[r] >= 0 && tmn[r] < e) remap[tmn[r]] = tcv > 0 ? tcv : 0;
+    if (tmn[r] >= 0 && tmn[r] < e) {
+      remap[tmn[r]] = tcv;
+      owner[tmn[r]] = (int)i;
+    }
   }
 }
 
@@ -796,18 +822,23 @@ __global__ void arcs_kernel(Claims cl, const unsigned char* __restrict__ ok,
                             const long long* __restrict__ from_ed,
                             const long long* __restrict__ to_ed,
                             const long long* __restrict__ mult,
+                            const long long* __restrict__ from_node,
+                            const long long* __restrict__ to_node,
                             const long long* __restrict__ remap,
+                            const int* __restrict__ owner,
                             long long* __restrict__ claim,
                             long long* __restrict__ cvg2,
                             long long* __restrict__ new_f,
                             long long* __restrict__ new_t,
                             long long* __restrict__ new_mult,
+                            u64* __restrict__ dropped,
                             const int* __restrict__ gate, long long c,
                             long long e, long long a) {
   if (closed(gate)) return;
   long long n = e > c ? e : c;
   n = n > a ? n : a;
   const long long stride = (long long)gridDim.x * blockDim.x;
+  unsigned mine = 0;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     if (i < e) {
@@ -818,7 +849,16 @@ __global__ void arcs_kernel(Claims cl, const unsigned char* __restrict__ ok,
       const long long f = from_ed[i], t = to_ed[i];
       long long nf = f >= 0 ? gather_or(remap, e, f, -1) : -1;
       long long nt = t >= 0 ? gather_or(remap, e, t, -1) : -1;
-      if (nf == nt && f != t) nf = nt = -1;  // a self-loop the merge made
+      const bool mf = f >= 0 && nf != f;  // from a minority node
+      const bool mt = t >= 0 && nt != t;  // to one
+      bool drop = nf == nt && f != t;  // a self-loop the merge made
+      if (!drop && (mf || mt))  // the bubble's own arcs, no cover, no join
+        drop = (mf && f < e && cl.holds(owner[f], t)) ||
+               (mt && t < e && cl.holds(owner[t], f)) ||
+               gather_or(to_node, e, nf, -1) !=
+                   gather_or(from_node, e, nt, -2);
+      if (drop) nf = nt = -1;
+      mine += f >= 0 && nf < 0;
       new_f[i] = nf;
       new_t[i] = nt;
       new_mult[i] = nf >= 0 ? mult[i] : 0;
@@ -829,6 +869,10 @@ __global__ void arcs_kernel(Claims cl, const unsigned char* __restrict__ ok,
         if (x >= 0 && x < e) claim[x] = EMPTY;
       }
     }
+  }
+  if (dropped != nullptr) {
+    mine = __reduce_add_sync(FULL, mine);
+    if ((threadIdx.x & 31) == 0 && mine) atomicAdd(dropped, (u64)mine);
   }
 }
 
@@ -854,14 +898,17 @@ cudaError_t claims_apply_arcs(const Claims& cl, const void* ok,
                               const void* cvg, const void* length,
                               const void* twin, const void* deleted,
                               const void* from_ed, const void* to_ed,
-                              const void* mult, void* claim, void* remap,
-                              void* cvg2, void* deleted2, void* new_f,
-                              void* new_t, void* new_mult, void* n_merged,
-                              const int* gate, long long c, long long e,
-                              long long a, cudaStream_t st) {
+                              const void* mult, const void* from_node,
+                              const void* to_node, void* claim, void* remap,
+                              void* owner, void* cvg2, void* deleted2,
+                              void* new_f, void* new_t, void* new_mult,
+                              void* n_merged, void* dropped, const int* gate,
+                              long long c, long long e, long long a,
+                              cudaStream_t st) {
   const auto* okp = static_cast<const unsigned char*>(ok);
   auto* claimp = static_cast<long long*>(claim);
   auto* remapp = static_cast<long long*>(remap);
+  auto* ownerp = static_cast<int*>(owner);
   auto* cvg2p = static_cast<long long*>(cvg2);
   auto* del2p = static_cast<unsigned char*>(deleted2);
   auto* mergedp = static_cast<u64*>(n_merged);
@@ -879,7 +926,7 @@ cudaError_t claims_apply_arcs(const Claims& cl, const void* ok,
         static_cast<const long long*>(cvg),
         static_cast<const long long*>(length),
         static_cast<const long long*>(twin), claimp, cvg2p, del2p, remapp,
-        mergedp, gate, c, e);
+        ownerp, mergedp, gate, c, e);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -888,9 +935,12 @@ cudaError_t claims_apply_arcs(const Claims& cl, const void* ok,
     arcs_kernel<<<grid_for(n3), THREADS, 0, st>>>(
         cl, okp, static_cast<const long long*>(from_ed),
         static_cast<const long long*>(to_ed),
-        static_cast<const long long*>(mult), remapp, claimp, cvg2p,
+        static_cast<const long long*>(mult),
+        static_cast<const long long*>(from_node),
+        static_cast<const long long*>(to_node), remapp, ownerp, claimp, cvg2p,
         static_cast<long long*>(new_f), static_cast<long long*>(new_t),
-        static_cast<long long*>(new_mult), gate, c, e, a);
+        static_cast<long long*>(new_mult), static_cast<u64*>(dropped), gate,
+        c, e, a);
     err = cudaGetLastError();
   }
   return err;
@@ -963,16 +1013,17 @@ extern "C" int claim_apply_launch(
     const void* ends, const void* ok, const void* len_a, const void* len_b,
     const void* cvg, const void* length, const void* twin,
     const void* deleted, const void* from_ed, const void* to_ed,
-    const void* mult, void* claim, void* remap, void* cvg2, void* deleted2,
+    const void* mult, const void* from_node, const void* to_node,
+    void* claim, void* remap, void* owner, void* cvg2, void* deleted2,
     void* new_f, void* new_t, void* new_mult, void* n_merged, long long c,
     long long m, long long e, long long a, void* stream) {
   if (c < 0 || e < 0 || a < 0 || m < 0 || m > MAX_M)
     return (int)cudaErrorInvalidValue;
   return (int)claims_apply_arcs(
       claims_of(maj, mnr, tw_maj, tw_mnr, ends, m), ok, len_a, len_b, cvg,
-      length, twin, deleted, from_ed, to_ed, mult, claim, remap, cvg2,
-      deleted2, new_f, new_t, new_mult, n_merged, nullptr, c, e, a,
-      static_cast<cudaStream_t>(stream));
+      length, twin, deleted, from_ed, to_ed, mult, from_node, to_node, claim,
+      remap, owner, cvg2, deleted2, new_f, new_t, new_mult, n_merged,
+      nullptr, nullptr, c, e, a, static_cast<cudaStream_t>(stream));
 }
 
 // Enqueues the wave's front on `stream`: eight kernels.  deleted (e,) bool,
@@ -1056,11 +1107,12 @@ extern "C" int back_launch(
     const void* ends, const void* ok, const void* len_a, const void* len_b,
     const void* cvg, const void* length, const void* twin,
     const void* deleted, const void* from_ed, const void* to_ed,
-    const void* mult, const void* compared, const void* cmask,
-    const void* cid_arc, const void* n_cand, const void* n_back,
-    void* failed, void* claim, void* remap, void* cvg2, void* deleted2,
-    void* new_f, void* new_t, void* new_mult, void* counts, void* gate,
-    long long c, long long m, long long e, long long a, long long cand_cap,
+    const void* mult, const void* from_node, const void* to_node,
+    const void* compared, const void* cmask, const void* cid_arc,
+    const void* n_cand, const void* n_back, void* failed, void* claim,
+    void* remap, void* owner, void* cvg2, void* deleted2, void* new_f,
+    void* new_t, void* new_mult, void* counts, void* gate, long long c,
+    long long m, long long e, long long a, long long cand_cap,
     void* stream) {
   if (c < 0 || e < 0 || a < 0 || m < 0 || m > MAX_M)
     return (int)cudaErrorInvalidValue;
@@ -1078,7 +1130,8 @@ extern "C" int back_launch(
   if (err != cudaSuccess) return (int)err;
   return (int)claims_apply_arcs(
       claims_of(maj, mnr, tw_maj, tw_mnr, ends, m), ok, len_a, len_b, cvg,
-      length, twin, deleted, from_ed, to_ed, mult, claim, remap, cvg2,
-      deleted2, new_f, new_t, new_mult, counts, static_cast<int*>(gate), c,
-      e, a, st);
+      length, twin, deleted, from_ed, to_ed, mult, from_node, to_node, claim,
+      remap, owner, cvg2, deleted2, new_f, new_t, new_mult, counts,
+      static_cast<long long*>(counts) + 4, static_cast<int*>(gate), c, e, a,
+      st);
 }

@@ -22,15 +22,25 @@ One wave, over flat arrays:
 4. accepted candidates claim their edges (scatter-min arbitration);
    claim-disjoint winners apply together: minority edges (and twins)
    deleted, their coverage added onto the covering majority edges,
-   their arcs remapped onto the majority path; a wave where nothing
-   merges retires its candidates into ``failed`` (``wave.back``).
+   the arcs that enter or leave the bubble from outside remapped onto
+   the majority path where they still join, every other arc of a
+   minority edge dropped; a wave where nothing merges retires its
+   candidates into ``failed`` (``wave.back``).
+
+The arc rule departs from the JAX package, which remaps every arc of a
+minority edge onto its cover, the bubble's own arcs included, and so
+can join two edges whose end and start K-mers differ (a cover -> join
+row that skips a majority node): the contigs then lose or gain the
+bases between.  The reference keeps every join consistent
+(cleanUpRedundancy, bubble.c:1617, splits node descriptors to do so);
+the port, which cannot split an edge, drops such a row.
 
 On a card each of the three named steps is a hand kernel, and a wave
 runs no sort.
 
 Waves repeat to a fixpoint like the reference's HasChanged loop
 (:2123).  Inside a wave the host reads nothing; ``pinch`` reads the
-wave's four counts once per wave.  As the JAX package jits ``_wave`` and
+wave's five counts once per wave.  As the JAX package jits ``_wave`` and
 keeps the arc table at a rounded capacity so one compiled wave serves
 wave after wave, a pinch runs its waves as one program over buffers of
 fixed shapes (``WaveProgram``): on a card the first wave runs eagerly,
@@ -104,21 +114,24 @@ def _wave_parts(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet, failed,
     # 5-6. the counts; claim arbitration (edge-disjoint winners, the
     # lowest (minority coverage, candidate index) claim wins) and apply
     # (minority nodes and twins deleted, coverage folded positionally,
-    # arcs remapped onto the covering majority node); with no ok row, the
+    # the arcs from outside remapped onto the covering majority node
+    # where they still join, the rest dropped); with no ok row, the
     # examined candidates retired into ``mark``: the back's kernels
     counts, *outs = wave.back(
         maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, eg.cvg, eg.length,
-        eg.twin, eg.deleted, aset.from_ed, aset.to_ed, aset.mult, compared,
-        cmask, cid_arc, n_cand, n_backtracked, cand_cap, mark)
+        eg.twin, eg.deleted, aset.from_ed, aset.to_ed, aset.mult,
+        eg.from_node, eg.to_node, compared, cmask, cid_arc, n_cand,
+        n_backtracked, cand_cap, mark)
     return counts, outs, cid_arc, cmask, ok
 
 
 def _wave(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet, failed,
           m_max: int, diff: int, seq_cap: int, cand_cap: int):
-    """One wave as the JAX ``_wave`` gives it, ``failed`` left as it is:
-    (cvg2, deleted2, new_f, new_t, new_mult, n_backtracked, n_compared,
-    n_merged, overflow, cid_arc, fail_mark).  On a card the first five
-    are undefined when n_merged == 0 (the back skips them)."""
+    """One wave in the outputs of the JAX ``_wave``, ``failed`` left as it
+    is: (cvg2, deleted2, new_f, new_t, new_mult, n_backtracked,
+    n_compared, n_merged, overflow, cid_arc, fail_mark); the arc rows
+    follow the port's rule (``wave.claim_apply``).  On a card the first
+    five are undefined when n_merged == 0 (the back skips them)."""
     counts, outs, cid_arc, cmask, ok = _wave_parts(
         eg, aset, failed, failed.clone(), m_max, diff, seq_cap, cand_cap)
     # examined candidates rejected by the checks themselves (not by
@@ -136,8 +149,9 @@ def _wave_step(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet, failed,
     merged (its examined candidates that the checks rejected); a
     productive wave's ``failed`` is cleared by ``WaveProgram.apply``.
     Returns (counts, cvg2, deleted2, new_f, new_t, new_mult); counts is
-    (4,) int64: merged, overflow, backtracked, compared.  On a card the
-    other five are undefined when counts[0] == 0."""
+    (5,) int64: merged, overflow, backtracked, compared, arc rows
+    dropped.  On a card the other five are undefined when counts[0] ==
+    0."""
     counts, outs, *_ = _wave_parts(eg, aset, failed, failed, m_max, diff,
                                    seq_cap, cand_cap)
     return (counts, *outs)
@@ -201,7 +215,7 @@ class WaveProgram:
         return _wave_step(self.eg, self.aset, self.failed, *self.args)
 
     def launch(self):
-        """Enqueue one wave; returns its (4,) counts on the device."""
+        """Enqueue one wave; returns its (5,) counts on the device."""
         global REPLAYS
         if self.dev.type != "cuda":
             self.outs = self._step()
@@ -255,24 +269,33 @@ def pinch(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet,
     HasChanged loop).  Returns (eg, aset, stats): the graph and the
     exact-size arc table of the last productive wave (the inputs when
     no wave merged); stats count pairs backtracked, compared and merged,
-    waves, productive waves (those that merged), the loop's wall seconds
-    and seconds per wave.
+    arc rows dropped, waves, productive waves (those that merged), the
+    loop's wall seconds and seconds per wave.
 
     Every productive wave deletes at least one edge; between graph
     changes each unproductive wave retires a fresh CAND_CAP-chunk of
     the remaining candidates (the ``failed`` mask).  The waves run as
-    one ``WaveProgram``, one blocking read of four counts a wave."""
+    one ``WaveProgram``, one blocking read of five counts a wave; each
+    productive wave's ``apply`` is the span ``contig.tourbus.apply``.
+    The run's counters (``utils/profiling``) get ``tourbus.<key>`` for
+    the waves, productive, merged, compared and arcs_dropped of stats,
+    and the waves' shapes: ``tourbus.arc_rows``, the arc buffers' rows
+    summed over waves; ``tourbus.cand_rows``, the candidate rows
+    (min(CAND_CAP, rows) a wave); ``tourbus.path_slots``, candidate rows
+    times MAXNODELENGTH."""
     m_max, diff = _params_for(merge_level)
-    stats = {"backtracked": 0, "compared": 0, "merged": 0, "waves": 0,
-             "productive": 0, "seconds": 0.0}
+    stats = {"backtracked": 0, "compared": 0, "merged": 0,
+             "arcs_dropped": 0, "waves": 0, "productive": 0,
+             "seconds": 0.0}
+    rows = aset.from_ed.shape[0]
     with profiling.span("contig.tourbus") as sp:
         # a graph without a single arc row has no bubble (and no candidate
         # for ``_wave`` to shape its chains on)
-        if aset.from_ed.shape[0]:
+        if rows:
             prog = WaveProgram(eg, aset, m_max, diff)
             while True:
                 stats["waves"] += 1
-                n, over, back, cmp_ = prog.launch().tolist()
+                n, over, back, cmp_, dropped = prog.launch().tolist()
                 stats["backtracked"] += back
                 stats["compared"] += cmp_
                 if n == 0:
@@ -282,12 +305,21 @@ def pinch(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet,
                     # into ``failed``; the next examines the next chunk
                     continue
                 stats["merged"] += n
+                stats["arcs_dropped"] += dropped
                 stats["productive"] += 1
                 # the merge changed the graph: every rejected candidate may
                 # be mergeable now (``apply`` clears the mask)
-                aset = prog.apply()
+                with profiling.span("contig.tourbus.apply"):
+                    aset = prog.apply()
             if stats["productive"]:
                 eg = prog.eg
     stats["seconds"] = sp.seconds
     stats["s_per_wave"] = stats["seconds"] / max(stats["waves"], 1)
+    cand_rows = min(CAND_CAP, rows) * stats["waves"]
+    counters = {key: stats[key] for key in (
+        "waves", "productive", "merged", "compared", "arcs_dropped")}
+    counters.update(arc_rows=rows * stats["waves"], cand_rows=cand_rows,
+                    path_slots=cand_rows * m_max)
+    for key, value in counters.items():
+        profiling.counter("tourbus." + key, value)
     return eg, aset, stats

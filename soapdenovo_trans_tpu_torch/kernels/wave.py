@@ -14,8 +14,11 @@ the deletes, the coverage adds, the remap and the rewrite of the arc
 rows) and the pinch's ``failed`` update (:349-356).  ``chains`` is
 steps 3-4 alone (:174-219), ``claim_apply`` steps 5-6 alone (:232-325).
 XLA fuses all of it into the wave program (device code, not Pallas
-kernels).  The CUDA source is ``csrc/wave.cu`` in this package, compiled
-for ``sm_90a`` with ``nvcc`` at first use into ``_build/`` and loaded with
+kernels).  The arc rows depart from the JAX wave, which remaps every row
+of a minority node onto its cover: here a row that the remap would leave
+unjoined, or that is the bubble's own, is dropped (``claim_apply``).
+The CUDA source is ``csrc/wave.cu`` in this package, compiled for
+``sm_90a`` with ``nvcc`` at first use into ``_build/`` and loaded with
 ``ctypes`` (``kernels/_nvcc.py``).
 
 Each wrapper launches its kernels for CUDA tensors and runs its plain
@@ -80,7 +83,7 @@ def _load():
                                       + [ctypes.c_longlong] * 3
                                       + [ctypes.c_void_p])
         lib.claim_apply_launch.restype = ctypes.c_int
-        lib.claim_apply_launch.argtypes = ([ctypes.c_void_p] * 23
+        lib.claim_apply_launch.argtypes = ([ctypes.c_void_p] * 26
                                            + [ctypes.c_longlong] * 4
                                            + [ctypes.c_void_p])
         lib.front_launch.restype = ctypes.c_int
@@ -88,7 +91,7 @@ def _load():
                                      + [ctypes.c_longlong] * 5
                                      + [ctypes.c_void_p])
         lib.back_launch.restype = ctypes.c_int
-        lib.back_launch.argtypes = ([ctypes.c_void_p] * 30
+        lib.back_launch.argtypes = ([ctypes.c_void_p] * 33
                                     + [ctypes.c_longlong] * 5
                                     + [ctypes.c_void_p])
         lib.front_work_bytes.restype = ctypes.c_longlong
@@ -273,38 +276,50 @@ def chains_plain(prev, u, t0, cmask, twin, m_max: int):
     return maj, mnr, tw_maj, tw_mnr, s_node, ends, found, n_backtracked
 
 
+def _claim_shapes(xs, c: int, m: int, e: int, a: int):
+    """(name, tensor, shape) of ``claim_apply``'s inputs."""
+    names = ("maj", "mnr", "tw_maj", "tw_mnr", "ends", "ok", "len_a",
+             "len_b", "cvg", "length", "twin", "deleted", "from_ed",
+             "to_ed", "mult", "from_node", "to_node")
+    shapes = ((c, m),) * 4 + ((c, 4),) + ((c,),) * 3 + ((e,),) * 4 + \
+        ((a,),) * 3 + ((e,),) * 2
+    return tuple(zip(names, xs, shapes))
+
+
 def claim_apply(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg,
-                length, twin, deleted, from_ed, to_ed, mult):
+                length, twin, deleted, from_ed, to_ed, mult, from_node,
+                to_node):
     """Steps 5-6 of the Tour-Bus wave: returns (cvg2, deleted2, new_f,
     new_t, new_mult, n_merged).
 
     maj, mnr, tw_maj, tw_mnr: (C, m) int64 and ends (C, 4) int64, as
     ``chains`` gives them; ok, len_a, len_b: (C,) as the identity check
     gives them; cvg, length, twin: (E,) int64 and deleted (E,) bool, an
-    ``EdgeGraph``'s; from_ed, to_ed, mult: (A,) int64 arc rows.  The ok
+    ``EdgeGraph``'s; from_ed, to_ed, mult: (A,) int64 arc rows; from_node,
+    to_node: (E,) int64, the ``EdgeGraph``'s end nodes.  The ok
     candidates that hold the least (minority coverage, candidate) of every
     edge they claim win (the claims of -1 are no claims); each deletes its
-    minority nodes and their twins, moves their coverage onto the covering
-    majority node and its twin, and remaps their arcs onto it; every arc
-    row is remapped and the self-loops this makes dropped; cvg2 is
-    clamped into [0, MAX_EDGE_COV]; n_merged (0-dim int64) counts the
-    winners.  The kernel's arbitration key needs each rank (a sum of at
-    most m coverages) below 2^31, which an EdgeGraph's coverage, clamped
-    to MAX_EDGE_COV by every wave, keeps."""
+    minority nodes and their twins and moves their coverage onto the
+    covering majority node and its twin.  The arc rows (the JAX wave
+    remaps them all and drops only the self-loops this makes): a row from
+    or to a winner's minority node is dropped where its other end is an
+    edge the same winner claims (the bubble's own fork, join and path
+    arcs, and their twins), where the node has no cover, and where the
+    row remapped onto the cover would not join (to_node[from] !=
+    from_node[to]); the rest of those rows are remapped, and the
+    self-loops the remap makes are dropped.  So every row a wave leaves
+    joins as the rows it was given do.  cvg2 is clamped into [0,
+    MAX_EDGE_COV]; n_merged (0-dim int64) counts the winners.  The
+    kernel's arbitration key needs each rank (a sum of at most m
+    coverages) below 2^31, which an EdgeGraph's coverage, clamped to
+    MAX_EDGE_COV by every wave, keeps."""
     global CLAIM_APPLY_LAUNCHES, CLAIM_APPLY_CAPTURED
     c, m = maj.shape if maj.dim() == 2 else (-1, -1)
     e, a = cvg.shape[0], from_ed.shape[0]
     xs = (maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg, length,
-          twin, deleted, from_ed, to_ed, mult)
+          twin, deleted, from_ed, to_ed, mult, from_node, to_node)
     _check(xs, xs[:5] + xs[6:11] + xs[12:], (ok, deleted),
-           (("maj", maj, (c, m)), ("mnr", mnr, (c, m)),
-            ("tw_maj", tw_maj, (c, m)), ("tw_mnr", tw_mnr, (c, m)),
-            ("ends", ends, (c, 4)), ("ok", ok, (c,)),
-            ("len_a", len_a, (c,)), ("len_b", len_b, (c,)),
-            ("cvg", cvg, (e,)), ("length", length, (e,)),
-            ("twin", twin, (e,)), ("deleted", deleted, (e,)),
-            ("from_ed", from_ed, (a,)), ("to_ed", to_ed, (a,)),
-            ("mult", mult, (a,))), m)
+           _claim_shapes(xs, c, m, e, a), m)
     dev = maj.device
     if dev.type == "cpu":
         return claim_apply_plain(*xs)
@@ -314,14 +329,16 @@ def claim_apply(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg,
     with torch.cuda.device(dev):
         scratch = claim_scratch(dev, e)
         remap = torch.empty(e, dtype=torch.int64, device=dev)
+        owner = torch.empty(e, dtype=torch.int32, device=dev)
         cvg2 = torch.empty(e, dtype=torch.int64, device=dev)
         deleted2 = torch.empty(e, dtype=torch.bool, device=dev)
         arcs = torch.empty((3, a), dtype=torch.int64, device=dev)
         n_merged = torch.empty((), dtype=torch.int64, device=dev)
         err = lib.claim_apply_launch(
             *(x.data_ptr() for x in xs), scratch.data_ptr(),
-            remap.data_ptr(), cvg2.data_ptr(), deleted2.data_ptr(),
-            *(x.data_ptr() for x in arcs), n_merged.data_ptr(), c, m, e, a,
+            remap.data_ptr(), owner.data_ptr(), cvg2.data_ptr(),
+            deleted2.data_ptr(), *(x.data_ptr() for x in arcs),
+            n_merged.data_ptr(), c, m, e, a,
             torch.cuda.current_stream(dev).cuda_stream)
         if err:
             raise RuntimeError(f"claim/apply kernel launch failed: CUDA "
@@ -334,8 +351,10 @@ def claim_apply(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg,
 
 
 def claim_apply_plain(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b,
-                      cvg, length, twin, deleted, from_ed, to_ed, mult):
-    """``claim_apply`` in plain PyTorch, as the JAX wave computes it."""
+                      cvg, length, twin, deleted, from_ed, to_ed, mult,
+                      from_node, to_node):
+    """``claim_apply`` in plain PyTorch: the JAX wave's claims, deletes,
+    coverage and positional cover, and the arc rule of ``claim_apply``."""
     e_cap = cvg.shape[0]
     dev = cvg.device
     me = torch.arange(e_cap, device=dev)
@@ -361,7 +380,8 @@ def claim_apply_plain(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b,
     n_merged = win.sum()
 
     # 6. apply: delete minority (+twins), fold coverage positionally,
-    # remap minority arcs onto the covering majority node
+    # remap the arcs that enter or leave a bubble onto the covering
+    # majority node
     mnr_w = torch.where(win[:, None], mnr, -1)
     tw_mnr_w = torch.where(win[:, None], tw_mnr, -1)
     del_idx = torch.cat([mnr_w, tw_mnr_w], 1).reshape(-1)
@@ -395,19 +415,40 @@ def claim_apply_plain(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b,
         torch.where(add_idx >= 0, add_val, 0))[:e_cap].clamp(
             0, unitigs.MAX_EDGE_COV)
 
+    # each minority node (and twin) of a winner goes to its cover, -1
+    # where it has none, and remembers its winner; each edge a winner
+    # claims remembers that winner
+    cid = torch.arange(c, device=dev)[:, None].expand(c, maj.shape[1])
     remap = torch.cat([me, me.new_zeros(1)])
+    owner = torch.full((e_cap + 1,), -1, dtype=torch.int64, device=dev)
     for idx, to in ((mnr_w, cover), (tw_mnr_w, tw_cover)):
-        idx, to = idx.reshape(-1), to.reshape(-1)
-        remap[torch.where(idx >= 0, idx, e_cap)] = to.clamp(min=0)
-    remap = remap[:e_cap]
+        at = torch.where(idx >= 0, idx, e_cap).reshape(-1)
+        remap[at] = to.reshape(-1)
+        owner[at] = cid.reshape(-1)
+    remap, owner = remap[:e_cap], owner[:e_cap]
+    claimed = torch.full((e_cap + 1,), -1, dtype=torch.int64, device=dev)
+    claimed[torch.where(win[:, None], claims, e_cap).reshape(-1)] = flat_cid
+    claimed = claimed[:e_cap]
 
     new_f = torch.where(from_ed >= 0, _gather_or(remap, from_ed, -1), -1)
     new_t = torch.where(to_ed >= 0, _gather_or(remap, to_ed, -1), -1)
-    # drop self-loops created by two minority nodes covering one
-    # majority node (genuine pre-existing loops are preserved)
-    created_loop = (new_f == new_t) & (from_ed != to_ed)
-    new_f = torch.where(created_loop, -1, new_f)
-    new_t = torch.where(created_loop, -1, new_t)
+    moved_f = (from_ed >= 0) & (new_f != from_ed)
+    moved_t = (to_ed >= 0) & (new_t != to_ed)
+    # a row from or to a minority node is dropped where its other end is
+    # claimed by the same winner (the bubble's own arcs: fork, join, either
+    # path, their twins), where the node has no cover, and where the
+    # remapped row would not join (to_node[from] != from_node[to]); so are
+    # the self-loops the remap makes (genuine loops are kept)
+    inside = (moved_f & (_gather_or(claimed, to_ed, -1)
+                         == _gather_or(owner, from_ed, -2))) | \
+        (moved_t & (_gather_or(claimed, from_ed, -1)
+                    == _gather_or(owner, to_ed, -2)))
+    joined = _gather_or(to_node, new_f, -1) == _gather_or(from_node, new_t,
+                                                          -2)
+    drop = ((new_f == new_t) & (from_ed != to_ed)) | \
+        ((moved_f | moved_t) & (inside | ~joined))
+    new_f = torch.where(drop, -1, new_f)
+    new_t = torch.where(drop, -1, new_t)
     new_mult = torch.where(new_f >= 0, mult, 0)
     return cvg2, deleted2, new_f, new_t, new_mult, n_merged
 
@@ -544,16 +585,18 @@ def front_plain(n_edges: int, deleted, cvg, twin, from_ed, to_ed, mult,
 
 
 def back(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg, length,
-         twin, deleted, from_ed, to_ed, mult, compared, cmask, cid_arc,
-         n_cand, n_backtracked, cand_cap: int, failed):
+         twin, deleted, from_ed, to_ed, mult, from_node, to_node, compared,
+         cmask, cid_arc, n_cand, n_backtracked, cand_cap: int, failed):
     """The Tour-Bus wave's back, from the verdicts on: returns (counts,
     cvg2, deleted2, new_f, new_t, new_mult).
 
-    ``claim_apply``'s 15 inputs, then compared, cmask (C,) bool and
+    ``claim_apply``'s 17 inputs, then compared, cmask (C,) bool and
     cid_arc (C,) int64 as the identity check and ``front`` give them,
     n_cand and n_backtracked (0-dim int64), cand_cap and the pinch's
-    failed (A,) bool.  counts is (4,) int64: merged, overflow
-    (max(n_cand - cand_cap, 0)), backtracked and compared.  When no row
+    failed (A,) bool.  counts is (5,) int64: merged, overflow
+    (max(n_cand - cand_cap, 0)), backtracked, compared, and the arc rows
+    the merge dropped (rows with a from-edge that ``claim_apply``'s rule
+    leaves as (-1, -1, 0); 0 when nothing merged).  When no row
     is ok nothing merges (counts[0] == 0) and the back sets
     failed[cid_arc[c]] in place for every cmask row; failed is never
     cleared here.  cvg2, deleted2, new_f, new_t and new_mult are
@@ -564,21 +607,15 @@ def back(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg, length,
     c, m = maj.shape if maj.dim() == 2 else (-1, -1)
     e, a = cvg.shape[0], from_ed.shape[0]
     xs = (maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg, length,
-          twin, deleted, from_ed, to_ed, mult)
+          twin, deleted, from_ed, to_ed, mult, from_node, to_node)
     more = (compared, cmask, cid_arc, n_cand, n_backtracked, failed)
     _check(xs + more, xs[:5] + xs[6:11] + xs[12:] + more[2:5],
            (ok, deleted, compared, cmask, failed),
-           (("maj", maj, (c, m)), ("mnr", mnr, (c, m)),
-            ("tw_maj", tw_maj, (c, m)), ("tw_mnr", tw_mnr, (c, m)),
-            ("ends", ends, (c, 4)), ("ok", ok, (c,)),
-            ("len_a", len_a, (c,)), ("len_b", len_b, (c,)),
-            ("cvg", cvg, (e,)), ("length", length, (e,)),
-            ("twin", twin, (e,)), ("deleted", deleted, (e,)),
-            ("from_ed", from_ed, (a,)), ("to_ed", to_ed, (a,)),
-            ("mult", mult, (a,)), ("compared", compared, (c,)),
-            ("cmask", cmask, (c,)), ("cid_arc", cid_arc, (c,)),
-            ("n_cand", n_cand, ()), ("n_backtracked", n_backtracked, ()),
-            ("failed", failed, (a,))), m)
+           _claim_shapes(xs, c, m, e, a) + (
+               ("compared", compared, (c,)), ("cmask", cmask, (c,)),
+               ("cid_arc", cid_arc, (c,)), ("n_cand", n_cand, ()),
+               ("n_backtracked", n_backtracked, ()),
+               ("failed", failed, (a,))), m)
     dev = maj.device
     if dev.type == "cpu":
         return back_plain(*xs, *more[:5], cand_cap, failed)
@@ -588,14 +625,16 @@ def back(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg, length,
     with torch.cuda.device(dev):
         scratch = claim_scratch(dev, e)
         remap = torch.empty(e, dtype=torch.int64, device=dev)
+        owner = torch.empty(e, dtype=torch.int32, device=dev)
         cvg2 = torch.empty(e, dtype=torch.int64, device=dev)
         deleted2 = torch.empty(e, dtype=torch.bool, device=dev)
         arcs = torch.empty((3, a), dtype=torch.int64, device=dev)
-        counts = torch.empty(4, dtype=torch.int64, device=dev)
+        counts = torch.empty(5, dtype=torch.int64, device=dev)
         gate = torch.empty(1, dtype=torch.int32, device=dev)
         err = lib.back_launch(
             *(x.data_ptr() for x in xs + more), scratch.data_ptr(),
-            remap.data_ptr(), cvg2.data_ptr(), deleted2.data_ptr(),
+            remap.data_ptr(), owner.data_ptr(), cvg2.data_ptr(),
+            deleted2.data_ptr(),
             *(x.data_ptr() for x in arcs), counts.data_ptr(),
             gate.data_ptr(), c, m, e, a, cand_cap,
             torch.cuda.current_stream(dev).cuda_stream)
@@ -610,14 +649,15 @@ def back(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg, length,
 
 
 def back_plain(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg,
-               length, twin, deleted, from_ed, to_ed, mult, compared, cmask,
-               cid_arc, n_cand, n_backtracked, cand_cap: int, failed):
+               length, twin, deleted, from_ed, to_ed, mult, from_node,
+               to_node, compared, cmask, cid_arc, n_cand, n_backtracked,
+               cand_cap: int, failed):
     """``back`` in plain PyTorch: ``claim_apply_plain``, the ``failed``
     update of a wave that merged nothing, and the counts; every output
     written."""
     cvg2, deleted2, new_f, new_t, new_mult, n_merged = claim_apply_plain(
         maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg, length, twin,
-        deleted, from_ed, to_ed, mult)
+        deleted, from_ed, to_ed, mult, from_node, to_node)
     overflow = (n_cand - cand_cap).clamp(min=0)
     # examined candidates rejected by the checks themselves (not by
     # claim arbitration — those must retry) are retired until the graph
@@ -628,6 +668,7 @@ def back_plain(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg,
     a_cap = failed.shape[0]
     failed |= _scatter_true(a_cap, torch.where(
         cmask & ~ok & (n_merged == 0), cid_arc, a_cap))
+    dropped = ((from_ed >= 0) & (new_f < 0)).sum()
     return (torch.stack([n_merged, overflow, n_backtracked,
-                         compared.sum()]),
+                         compared.sum(), dropped]),
             cvg2, deleted2, new_f, new_t, new_mult)

@@ -4,7 +4,9 @@ CLI's ``all``, byte for byte, at K = 23 and K = 31 (every stage file;
 its own path); ``map -g`` then ``scaff -g`` resumed from copies of the
 contig files against the JAX CLI's; two map batch sizes; every flag use
 parsed as the JAX CLI parses it; and ``all -F -f -R`` with jax, the JAX
-package and pandas unimportable."""
+package and pandas unimportable.  The JAX CLI's Tour-Bus runs under the
+port's arc rule (``tests/tourbus_rule.py``), where the port departs from
+it."""
 
 import gzip
 import os
@@ -19,6 +21,7 @@ import perf_e2e
 from soapdenovo_trans_tpu import cli as jcli
 from soapdenovo_trans_tpu.ops import dictionary as jd
 from soapdenovo_trans_tpu_torch import cli as tcli
+from tests.tourbus_rule import rule_on
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PREGRAPH_FILES = (".kmerFreq", ".vertex", ".preArc", ".preGraphBasic",
@@ -48,6 +51,7 @@ def jax_all(request, reads_cfg, tmp_path_factory):
     out = str(tmp_path_factory.mktemp(f"jax_k{k}") / "jax")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jd, "CAP_MODE", jd.CAP_MODE)  # cli.main mutates it
+        rule_on(mp)  # the port's Tour-Bus arc rule
         jcli.main(["all", "-s", reads_cfg, "-K", str(k), "-o", out])
     return k, out
 

@@ -2,7 +2,8 @@
 CLI's on the same pregraph files, byte for byte (K = 23 and K = 31);
 the in-memory path after pregraph (as ``all`` runs it) against the JAX
 package's; and the port's pregraph + contig with jax made
-unimportable."""
+unimportable.  The JAX package's Tour-Bus runs under the port's arc
+rule (``tests/tourbus_rule.py``), where the port departs from it."""
 
 import gzip
 import os
@@ -17,6 +18,7 @@ import perf_e2e
 from soapdenovo_trans_tpu import cli as jcli
 from soapdenovo_trans_tpu.ops import dictionary as jd
 from soapdenovo_trans_tpu_torch import cli as tcli
+from tests.tourbus_rule import rule_on
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PREGRAPH_FILES = (".preGraphBasic", ".vertex", ".edge.gz", ".preArc")
@@ -45,10 +47,16 @@ def _copy_pregraph(src, dst):
         shutil.copy(src + ext, dst + ext)
 
 
-def _assert_same(jax_out, port_out):
+def _assert_same(jax_out, port_out, result):
+    """Every contig file equal and holding records; ``.Arc`` may be empty
+    where the port's contigs have no arc between them (at -M 1 Tour-Bus
+    can leave none on this fixture)."""
+    arcs = result.contigs.arcs
+    joined = int(((arcs.from_ed[:arcs.n] >= 0)
+                  & (arcs.to_ed[:arcs.n] >= 0)).sum())
     for ext in CONTIG_FILES:
         want = _read(jax_out + ext)
-        assert len(want) > 0, ext
+        assert len(want) > 0 or (ext == ".Arc" and joined == 0), ext
         assert _read(port_out + ext) == want, ext
 
 
@@ -61,17 +69,19 @@ def test_contig_files_match_jax_cli(k, reads_cfg, tmp_path, monkeypatch):
     jax_out, port_out = str(tmp_path / "jax"), str(tmp_path / "port")
     _copy_pregraph(pre, jax_out)
     _copy_pregraph(pre, port_out)
+    rule_on(monkeypatch)  # the port's Tour-Bus arc rule
     jcli.main(["contig", "-g", jax_out])
     result, _table, got_k = tcli.main(["contig", "-g", port_out])
     assert got_k == k and result.contigs.n > 0
     assert result.tourbus["merged"] > 0 and result.tourbus["waves"] > 1
     assert set(result.phase_seconds) == {"bubbles", "clean", "laps", "short"}
-    _assert_same(jax_out, port_out)
+    _assert_same(jax_out, port_out, result)
 
 
-def test_in_memory_contig_matches_jax(reads_cfg, tmp_path):
+def test_in_memory_contig_matches_jax(reads_cfg, tmp_path, monkeypatch):
     """run_contig_cmd on the pregraph result, as ``all`` runs it."""
     jax_out, port_out = str(tmp_path / "jax"), str(tmp_path / "port")
+    rule_on(monkeypatch)  # the port's Tour-Bus arc rule
     jargs = jcli.build_parser().parse_args(
         ["all", "-s", reads_cfg, "-K", "23", "-o", jax_out])
     jcli.run_contig_cmd(jargs, jcli.run_pregraph_cmd(jargs))
@@ -81,7 +91,7 @@ def test_in_memory_contig_matches_jax(reads_cfg, tmp_path):
     result, table, k = tcli.run_contig_cmd(
         tcli.build_parser().parse_args(["contig", "-g", port_out]), dev, res)
     assert k == 23 and table is res.table
-    _assert_same(jax_out, port_out)
+    _assert_same(jax_out, port_out, result)
 
 
 def test_contig_runs_without_jax(tmp_path):

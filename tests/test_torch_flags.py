@@ -8,9 +8,9 @@ prefix replaced):
     ``scaff -F -S`` and ``scaff -F -r`` on copies;
 (b) a simulated paired library: ``all -F -f -r`` at K = 23 and 31.
 
-One JAX run per fixture and K.  ``tests/test_torch_flags_paths.py``
-holds ``pregraph -R``, ``contig -R`` and ``map -f`` at several batch
-sizes."""
+One JAX run per fixture and K, its Tour-Bus under the port's arc rule
+(``tests/tourbus_rule.py``).  ``tests/test_torch_flags_paths.py`` holds
+``pregraph -R``, ``contig -R`` and ``map -f`` at several batch sizes."""
 
 import gzip
 import os
@@ -26,6 +26,7 @@ from soapdenovo_trans_tpu.io import fastx as jfastx
 from soapdenovo_trans_tpu.ops import dictionary as jd
 from soapdenovo_trans_tpu_torch import cli as tcli
 from soapdenovo_trans_tpu_torch.ops import bits as tbits
+from tests.tourbus_rule import rule_on
 
 PREGRAPH_FILES = (".kmerFreq", ".vertex", ".preArc", ".preGraphBasic",
                   ".edge.gz")
@@ -45,6 +46,7 @@ def _one_thread():
 def _jax_main(argv):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jd, "CAP_MODE", jd.CAP_MODE)  # cli.main mutates it
+        rule_on(mp)  # the port's Tour-Bus arc rule
         jcli.main(argv)
 
 

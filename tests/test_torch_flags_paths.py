@@ -145,12 +145,13 @@ def test_repeat_is_split_through_both_clis(tmp_path):
 def deep(tmp_path_factory):
     """(config, port prefix with contig files) of 5,000 pairs: 10,000
     reads are three 4,096-row blocks of the map stage's gap-read
-    order."""
+    order.  The contigs are -M 0's: Tour-Bus at -M 1 assembles this
+    fixture's transcripts whole, and no read is left for a gap."""
     folder = tmp_path_factory.mktemp("deep")
     cfg = perf_e2e.synth(str(folder), n_tx=30, n_pairs=5000, seed=3)
     out = str(folder / "port")
     _port_main(["pregraph", "-s", cfg, "-K", "23", "-o", out])
-    _port_main(["contig", "-g", out])
+    _port_main(["contig", "-g", out, "-M", "0"])
     return cfg, out
 
 

@@ -3,7 +3,12 @@
 The JAX package's graphs (built by the helpers of tests/test_bubbles.py)
 feed both packages through soapdenovo_trans_tpu_torch.convert; the
 port's pinch must give the same deleted mask, coverage, arc table and
-counters.  Exact comparison (tolerance 0)."""
+counters as the JAX pinch run with the port's arc rule laid over its
+waves (``tests/tourbus_rule.py``: the JAX wave's rows, less the rows the
+rule drops, recomputed from the wave's paths and the edges' end nodes).
+The JAX pinch without the rule leaves a row that does not join on the
+multi-node bubble; the port's leaves none.  Exact comparison (tolerance
+0)."""
 
 import numpy as np
 import pytest
@@ -18,6 +23,7 @@ from soapdenovo_trans_tpu_torch.graph import bubbles as tbubbles
 from soapdenovo_trans_tpu_torch.graph import tourbus as ttour
 from tests.test_bubbles import (K, _multinode_bubble_reads, build,
                                 snp_variant, unique_kmer_seq)
+from tests.tourbus_rule import rule_on
 
 
 @pytest.fixture(autouse=True)
@@ -55,14 +61,17 @@ def test_lcs_scores_match_jax():
 
 
 def _pinch_both(table, eg, aset, merge_level, k=K):
-    """JAX and port pinch on the same graph; asserts equal results and
-    returns the port's stats."""
-    jeg, jas, jstats = jtour.pinch(eg, aset, k, merge_level)
+    """JAX (under the port's arc rule) and port pinch on the same graph;
+    asserts equal results and returns the port's stats."""
+    with pytest.MonkeyPatch.context() as mp:
+        ruled = rule_on(mp)
+        jeg, jas, jstats = jtour.pinch(eg, aset, k, merge_level)
     teg, tas, tstats = ttour.pinch(convert.to_torch(eg, "cpu"),
                                    convert.to_torch(aset, "cpu"), k,
                                    merge_level)
     for key in ("backtracked", "compared", "merged", "waves"):
         assert tstats[key] == jstats[key], key
+    assert tstats["arcs_dropped"] == ruled.dropped
     np.testing.assert_array_equal(np.asarray(jeg.deleted), teg.deleted.numpy())
     np.testing.assert_array_equal(np.asarray(jeg.cvg), teg.cvg.numpy())
     assert tas.n == int(jas.n)
@@ -94,6 +103,44 @@ def test_multinode_bubble_merged():
     _t, _v, _spur, reads = _multinode_bubble_reads(np.random.default_rng(7))
     table, eg, aset = build(reads)
     assert _pinch_both(table, eg, aset, 1)["merged"] >= 1
+
+
+def _unjoined(eg, aset):
+    """The live arc rows (both edges live, mult > 0) whose from-edge does
+    not end in the node its to-edge starts from."""
+    dead = np.asarray(eg.deleted)
+    fn, tn = np.asarray(eg.from_node), np.asarray(eg.to_node)
+    n = int(aset.n)
+    f, t, m = (np.asarray(x)[:n] for x in (aset.from_ed, aset.to_ed,
+                                           aset.mult))
+    live = (f >= 0) & (t >= 0) & (m > 0)
+    live[live] &= ~dead[f[live]] & ~dead[t[live]]
+    return [(int(a), int(b)) for a, b in zip(f[live], t[live])
+            if tn[a] != fn[b]]
+
+
+def test_multinode_bubble_joins_after_the_wave():
+    """The majority branch is two edges, the minority one: the JAX wave
+    remaps the minority edge's arcs onto its cover and leaves a row that
+    skips a majority edge; the port's wave drops the bubble's own rows, so
+    every row left joins, and the fork -> majority -> join path keeps its
+    rows, forward and on the twin strand."""
+    _t, _v, _spur, reads = _multinode_bubble_reads(np.random.default_rng(7))
+    _table, eg, aset = build(reads)
+    assert not _unjoined(eg, aset)
+    jeg, jas, _ = jtour.pinch(eg, aset, K, 1)
+    assert _unjoined(jeg, jas)  # the fault, in the JAX package
+    teg, tas, stats = ttour.pinch(convert.to_torch(eg, "cpu"),
+                                  convert.to_torch(aset, "cpu"), K, 1)
+    assert stats["merged"] >= 1 and stats["arcs_dropped"] > 0
+    assert not _unjoined(teg, tas)
+    # every row between two edges that survive is kept
+    before = set(zip(np.asarray(aset.from_ed)[:int(aset.n)].tolist(),
+                     np.asarray(aset.to_ed)[:int(aset.n)].tolist()))
+    after = set(zip(tas.from_ed.tolist(), tas.to_ed.tolist()))
+    dead = teg.deleted.numpy()
+    assert {(f, t) for f, t in before if not dead[f] and not dead[t]} <= \
+        after
 
 
 @pytest.mark.parametrize("level", [1, 2, 3])

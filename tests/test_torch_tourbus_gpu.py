@@ -5,8 +5,10 @@ Imports no JAX, so it runs where only torch is installed:
     python -m pytest --noconftest tests/test_torch_tourbus_gpu.py -m gpu
 
 The graph is the port's pregraph of ``perf_e2e.synth`` reads (20,000
-pairs, seed 0, built on the CPU): 28 waves at -M 1 and 25 at -M 3.
-Exact comparison (tolerance 0)."""
+pairs, seed 0, built on the CPU): 12 waves at -M 1 and 11 at -M 3 with
+the pinch's 1,024 candidates a wave; the pinch test takes 256 a wave,
+125 and 42 waves, so that most of them are replays.  Exact comparison
+(tolerance 0)."""
 
 import os
 
@@ -52,17 +54,19 @@ def pregraph(tmp_path_factory):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("level", [1, 3])
-def test_replayed_pinch_equals_cpu(pregraph, level):
+def test_replayed_pinch_equals_cpu(pregraph, level, monkeypatch):
     """The card's pinch (one eager wave, one capture, replays) gives the
     CPU pinch's graph, table and counters; one capture, every later wave
     a replay, and one identity kernel execution a wave."""
+    monkeypatch.setattr(tourbus, "CAND_CAP", 256)
     eg, aset, k = pregraph
     ceg, cas, cst = tourbus.pinch(eg, aset, k, level)
     tourbus.CAPTURES = tourbus.REPLAYS = lcs.IDENTITY_LAUNCHES = 0
     dev = torch.device("cuda")
     geg, gas, gst = tourbus.pinch(_to(eg, dev), _to(aset, dev), k, level)
     torch.cuda.synchronize()
-    for key in ("backtracked", "compared", "merged", "waves", "productive"):
+    for key in ("backtracked", "compared", "merged", "waves", "productive",
+                "arcs_dropped"):
         assert gst[key] == cst[key], key
     assert gst["waves"] >= 20 and 1 <= gst["productive"]
     assert tourbus.CAPTURES == 1

@@ -120,8 +120,10 @@ def test_in_wave_failed_update_equals_host(monkeypatch):
         before = prog.failed.clone()
         want = ttour._wave(prog.eg, prog.aset, before, m_max, diff,
                            ttour.SEQ_CAP, 8)
-        n, over, back, cmp_ = prog.launch().tolist()
+        n, over, back, cmp_, dropped = prog.launch().tolist()
         assert [n, over, back, cmp_] == [int(want[i]) for i in (7, 8, 5, 6)]
+        assert dropped == (int(((prog.aset.from_ed >= 0)
+                                & (want[2] < 0)).sum()) if n else 0)
         if n:
             prog.apply()
             assert not bool(prog.failed.any())

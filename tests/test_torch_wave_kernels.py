@@ -5,8 +5,9 @@
 Held here: the port's ``_wave``, which goes through the front, the
 identity check and the back (their plain versions on the CPU), equals
 the JAX ``_wave`` on every wave of a pinch at -M 1, 2 and 3, with 8 and
-1,024 candidates a wave, on two fixtures, all 11 outputs; ``front_plain``
-equals a numpy loop written here (each node's live predecessor by
+1,024 candidates a wave, on two fixtures, all 11 outputs, but for the
+arc rows that the port's arc rule drops (``tests/tourbus_rule.py``);
+``front_plain`` equals a numpy loop written here (each node's live predecessor by
 (coverage, -from-edge), the candidates by (coverage, row), then the
 chains) on the front cases of tests/test_torch_wave_kernels_gpu.py (equal
 coverages, few values, int32-limit coverages, duplicate and padded rows
@@ -18,7 +19,9 @@ then the mark and the counts), with ok rows and without; and
 one candidate at a time, on the named cases of the same file (ties at
 the meeting point, clash, palindrome, not found, equal rank, a shared
 edge, the cover fallback, a created self-loop beside a genuine one,
-coverage at the 16,000 cap, padded rows).  Exact comparison (tolerance
+coverage at the 16,000 cap, padded rows, and the arc rule's: a majority
+path of two edges, a twin bubble with arcs from outside, no cover),
+every row they leave joining.  Exact comparison (tolerance
 0)."""
 
 import functools
@@ -40,10 +43,13 @@ from tests.test_bubbles import _multinode_bubble_reads, build
 from tests.test_torch_tourbus import _many_bubbles
 from tests.test_torch_wave_kernels_gpu import (CHAIN_CASES, CLAIM_CASES,
                                                FRONT_CASES, MAX_COV,
+                                               RULE_CASES,
                                                back_inputs, chains_inputs,
                                                check_front_case,
                                                claim_inputs, front_case,
-                                               front_inputs, wave_case)
+                                               front_inputs, joins,
+                                               wave_case)
+from tests.tourbus_rule import apply_loop, wave_rule
 
 
 @pytest.fixture(autouse=True)
@@ -99,72 +105,6 @@ def chains_loop(prev, u, t0, cmask, twin, m):
     return maj, mnr, tw_maj, tw_mnr, s_node, ends, found, n_back
 
 
-def claim_apply_loop(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg,
-                     length, twin, deleted, from_ed, to_ed, mult):
-    """``claim_apply`` one candidate at a time: each edge's least
-    (rank, candidate), the winners, then each winner's apply.  Returns
-    its six outputs and what the cases check: the claims, ranks and
-    winners, and how many covers took the fallback."""
-    c, m = maj.shape
-    e = len(cvg)
-    claims, rank = [], []
-    for r in range(c):
-        claims.append([x for row in (maj, tw_maj, mnr, tw_mnr, ends)
-                       for x in row[r] if 0 <= x < e])
-        rank.append(sum(_get(cvg, x, 0) for x in mnr[r] if x >= 0))
-    owner = {}
-    for r in range(c):
-        if ok[r]:
-            for x in claims[r]:
-                owner[x] = min(owner.get(x, (rank[r], r)), (rank[r], r))
-    win = [bool(ok[r]) and all(owner[x] == (rank[r], r) for x in claims[r])
-           for r in range(c)]
-    cvg2, deleted2 = cvg.copy(), deleted.copy()
-    remap = np.arange(e)
-    fallbacks = 0
-    for r in np.flatnonzero(win):
-        cover, cum_b = [], 0
-        live = [x for x in maj[r] if x >= 0]
-        last = int(maj[r][max(len(live) - 1, 0)])
-        for x in mnr[r]:
-            lb = _get(length, x, 0)
-            mid, cum_b = cum_b + lb // 2, cum_b + lb
-            scale = mid * len_a[r] // len_b[r] if len_b[r] > 0 else 0
-            cv, cum_a = last, 0
-            for y in maj[r]:
-                ln = _get(length, y, 0)
-                if y >= 0 and cum_a <= scale < cum_a + ln:
-                    cv = int(y)
-                    break
-                cum_a += ln
-            cover.append(cv if x >= 0 else -1)
-            fallbacks += x >= 0 and cv == last and not any(
-                y >= 0 and y == last and _span_holds(maj[r], length, y, scale)
-                for y in maj[r])
-        for x, tx, cv in zip(mnr[r], tw_mnr[r], cover):
-            for node in (x, tx):
-                if 0 <= node < e:
-                    deleted2[node] = True
-            tcv = _get(twin, cv, -1)
-            if 0 <= cv < e:
-                cvg2[cv] += _get(cvg, x, 0)
-            if 0 <= tcv < e:
-                cvg2[tcv] += _get(cvg, tx, 0)
-        for idx, cov in ((mnr[r], cover),
-                         (tw_mnr[r], [_get(twin, cv, -1) for cv in cover])):
-            for x, cv in zip(idx, cov):
-                if 0 <= x < e:
-                    remap[x] = max(cv, 0)
-    new_f = np.array([_get(remap, f, -1) if f >= 0 else -1 for f in from_ed])
-    new_t = np.array([_get(remap, t, -1) if t >= 0 else -1 for t in to_ed])
-    loop = (new_f == new_t) & (from_ed != to_ed)
-    new_f[loop] = new_t[loop] = -1
-    new_mult = np.where(new_f >= 0, mult, 0)
-    return (np.clip(cvg2, 0, MAX_COV), deleted2, new_f, new_t, new_mult,
-            int(np.sum(win)), {"claims": claims, "rank": rank, "win": win,
-                               "fallbacks": fallbacks})
-
-
 def front_loop(n_edges, deleted, cvg, twin, from_ed, to_ed, mult, failed,
                m, cand_cap):
     """``front`` one row at a time: each node's live predecessor with the
@@ -195,17 +135,6 @@ def front_loop(n_edges, deleted, cvg, twin, from_ed, to_ed, mult, failed,
         prev, u, t0, cmask, twin, m)
     return (cid_arc, cmask, u, t0, maj, mnr, tw_maj, tw_mnr, ends, found,
             n_back, int(cand.sum()))
-
-
-def _span_holds(nodes, length, y, scale) -> bool:
-    """Whether node y's span along the path ``nodes`` holds ``scale``."""
-    cum = 0
-    for x in nodes:
-        ln = _get(length, x, 0)
-        if x == y:
-            return cum <= scale < cum + ln
-        cum += ln
-    return False
 
 
 def _assert_equal(got, want):
@@ -243,11 +172,16 @@ def test_claim_apply_plain_matches_loop(name, m):
     case = wave_case(name, 48, m, 21)
     xs = claim_inputs(case, m, 5, "cpu")
     got = wave.claim_apply(*xs)
-    want = claim_apply_loop(*(x.numpy() for x in xs))
+    want = apply_loop(*(x.numpy() for x in xs), MAX_COV)
     _assert_equal(got, want)
     cvg2, new_f, n_merged = want[0], want[2], want[5]
     ok = xs[5].numpy()
     from_ed, to_ed = case["from_ed"], case["to_ed"]
+    # every row the wave leaves joins, as every row it was given does
+    assert joins(from_ed, to_ed, case["from_node"], case["to_node"])
+    assert joins(new_f, want[3], case["from_node"], case["to_node"])
+    if name in RULE_CASES:
+        check_rule_case(name, xs, want)
     if name in ("equal_rank", "shared_edge"):  # some ok rows lost
         assert 0 < n_merged < ok.sum()
     if name == "equal_rank":  # of two equal ranks on one edge, the lower
@@ -267,9 +201,39 @@ def test_claim_apply_plain_matches_loop(name, m):
         dropped = (new_f < 0) & (from_ed >= 0)
         assert dropped.any()  # a self-loop the merge made
         genuine = (from_ed == to_ed) & (from_ed >= 0)
-        assert (new_f[genuine] >= 0).all()  # kept
+        # kept, but for a loop on a winner's minority node: the rule
+        # drops it (the bubble's own arc), where the JAX wave moves it
+        assert (new_f[genuine & ~want[6]["rule"]] >= 0).all()
+        assert (new_f[genuine] >= 0).any()
     if name == "cover_fallback":  # a winner's node no majority span holds
         assert want[6]["fallbacks"] > 0
+
+
+def check_rule_case(name, xs, want):
+    """The rule's cases: the rule dropped rows; each winner's majority
+    path (fork, its nodes, join) keeps every arc row it had, and so does
+    its twin path; a winner with no majority path (``no_cover``) keeps no
+    row of its minority nodes (the JAX wave sends them to edge 0)."""
+    maj, mnr, tw_maj, tw_mnr, ends = (x.numpy() for x in xs[:5])
+    from_ed, to_ed = xs[12].numpy(), xs[13].numpy()
+    new_f, new_t, info = want[2], want[3], want[6]
+    assert info["rule"].any()
+    kept = set(zip(new_f.tolist(), new_t.tolist()))
+    bare_winners = 0
+    for r in np.flatnonzero(info["win"]):
+        path = [ends[r, 0], *maj[r][maj[r] >= 0], ends[r, 1]]
+        if len(path) == 2:  # no cover
+            bare_winners += 1
+            bare = set(mnr[r][mnr[r] >= 0]) | set(tw_mnr[r][tw_mnr[r] >= 0])
+            touched = np.isin(from_ed, list(bare)) | np.isin(to_ed, list(bare))
+            assert touched.any() and (new_f[touched] == -1).all()
+            continue
+        tw = [ends[r, 3], *tw_maj[r][tw_maj[r] >= 0][::-1], ends[r, 2]]
+        for p in (path, tw):
+            for f, t in zip(p, p[1:]):
+                if ((from_ed == f) & (to_ed == t)).any():
+                    assert (int(f), int(t)) in kept, (r, f, t)
+    assert (bare_winners > 0) == (name == "no_cover")
 
 
 @pytest.mark.parametrize("cap", [8, 1024])
@@ -301,14 +265,15 @@ def test_back_plain_matches_wave_step(name, cap, productive):
                      "cpu")
     failed = xs[-1].clone()
     got = wave.back(*xs[:-1], failed)
-    want = wave.claim_apply_plain(*xs[:15])
-    ok, (compared, cmask, cid_arc, n_cand, n_back) = xs[5], xs[15:20]
+    want = wave.claim_apply_plain(*xs[:17])
+    ok, (compared, cmask, cid_arc, n_cand, n_back) = xs[5], xs[17:22]
     n_merged = int(want[5])
     want_failed = xs[-1].numpy().copy()
     if n_merged == 0:
         want_failed[cid_arc.numpy()[(cmask & ~ok).numpy()]] = True
+    dropped = int(((xs[12] >= 0) & (want[2] < 0)).sum())
     assert got[0].tolist() == [n_merged, max(int(n_cand) - cap, 0),
-                               int(n_back), int(compared.sum())]
+                               int(n_back), int(compared.sum()), dropped]
     _assert_equal(got[1:], want[:5])
     np.testing.assert_array_equal(failed.numpy(), want_failed)
     assert (n_merged > 0) == bool(ok.any())
@@ -341,20 +306,28 @@ def _graph(name):
 def test_wave_matches_jax_every_wave(monkeypatch, name, cand_cap, level):
     """A pinch on the port's wave program; before each wave, the JAX
     ``_wave`` and the port's ``_wave`` on the same state (the table at
-    the pinch's fixed capacity) give the same 11 outputs."""
+    the pinch's fixed capacity) give the same 11 outputs, but for the
+    arc rows that the port's rule drops (``tests/tourbus_rule.py``,
+    recomputed here from the wave's paths and the edges' end nodes):
+    there the port's rows are (-1, -1, 0), and the rule drops some."""
     monkeypatch.setattr(ttour, "CAND_CAP", cand_cap)
     eg, aset = _graph(name)
     m_max, diff = ttour._params_for(level)
     prog = ttour.WaveProgram(eg, aset, m_max, diff)
     args = (m_max, diff, ttour.SEQ_CAP, cand_cap)
-    waves = productive = 0
+    waves = productive = dropped = 0
     while True:
         jeg = convert.to_numpy(prog.eg, junitigs.EdgeGraph)
         jas = convert.to_numpy(prog.aset, jarcs.ArcSet)
-        want = jtour._wave(jeg, jas, jnp.asarray(prog.failed.numpy()),
-                           *args)
+        want = [np.asarray(w) for w in jtour._wave(
+            jeg, jas, jnp.asarray(prog.failed.numpy()), *args)]
         got = ttour._wave(prog.eg, prog.aset, prog.failed.clone(), *args)
-        _assert_equal(got, [np.asarray(w) for w in want])
+        if int(want[7]):
+            rule = wave_rule(jeg, jas, prog.failed.numpy(), *args, MAX_COV)
+            dropped += int(rule.sum())
+            for i, fill in ((2, -1), (3, -1), (4, 0)):
+                want[i] = np.where(rule, fill, want[i])
+        _assert_equal(got, want)
         waves += 1
         n, over = prog.launch().tolist()[:2]
         if n:
@@ -362,5 +335,5 @@ def test_wave_matches_jax_every_wave(monkeypatch, name, cand_cap, level):
             prog.apply()
         elif not over:
             break
-    assert productive >= 1
+    assert productive >= 1 and dropped > 0
     assert waves > productive or cand_cap == 1024

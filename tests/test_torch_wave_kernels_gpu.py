@@ -26,7 +26,7 @@ MAX_COV = 16000  # unitigs.MAX_EDGE_COV
 
 # the kinds of candidate row a case is made of (``wave_case``)
 ROW_KINDS = ("bubble", "shared", "ties", "clash", "palindrome", "no_meet",
-             "masked", "deep", "zero_length")
+             "masked", "deep", "zero_length", "skip", "twin")
 # named cases: the rows each is made of
 CASES = {
     "ties": ("ties",),
@@ -39,13 +39,20 @@ CASES = {
     "created_loop": ("bubble",),
     "cvg_cap": ("bubble", "shared"),
     "padded_rows": ("bubble", "masked"),
+    "skip_join": ("skip",),
+    "twin_bubble": ("twin",),
+    "no_cover": ("bubble", "skip"),
     "mixed": ROW_KINDS,
     "random": (),
 }
 CHAIN_CASES = ["ties", "clash", "palindrome", "not_found", "mixed",
                "random"]
 CLAIM_CASES = ["equal_rank", "shared_edge", "cover_fallback",
-               "created_loop", "cvg_cap", "padded_rows", "mixed", "random"]
+               "created_loop", "cvg_cap", "padded_rows", "skip_join",
+               "twin_bubble", "no_cover", "mixed", "random"]
+# the cases of the arc rule: every row a wave leaves joins, and the
+# majority paths survive
+RULE_CASES = ["skip_join", "twin_bubble", "no_cover"]
 
 
 class _Graph:
@@ -87,6 +94,11 @@ class _Graph:
     def arc(self, f: int, t: int) -> None:
         self.arcs.append((f, t))
 
+    def twin_arcs(self, rows) -> None:
+        """The twin of each row (f, t): twin(t) -> twin(f)."""
+        for f, t in rows:
+            self.arc(self.twin[t], self.twin[f])
+
 
 def _bubble(g: _Graph, m: int, p=None, q=None, fork=None, maj=None):
     """A bubble in the forest: fork s, a majority path of p nodes then t
@@ -117,6 +129,30 @@ def _row(g: _Graph, kind: str, m: int, last):
         # another minority path onto the previous bubble's fork and
         # majority path: the two claim the same edges
         b = _bubble(g, m, fork=last[2], maj=(last[3], last[1]))
+        return b[0], b[1], True, b
+    if kind == "skip":
+        # two majority nodes, one minority node: the JAX remap joins the
+        # fork or the minority node's cover past a majority node; an arc
+        # from outside into the minority node, and one out of it
+        n_arcs = len(g.arcs)
+        b = _bubble(g, m, p=2, q=1)
+        g.arc(g.node(), b[4][0])
+        g.arc(b[4][0], g.node())
+        g.twin_arcs(g.arcs[n_arcs:])
+        return b[0], b[1], True, b
+    if kind == "twin":
+        # a bubble and its twin bubble, with arcs from outside into the
+        # minority path and its twin: an outside edge x with x -> the
+        # first majority node and x -> the first minority node (its
+        # remap joins), and one with x -> a later minority node only
+        n_arcs = len(g.arcs)
+        b = _bubble(g, m, p=int(rng.integers(1, m + 1)),
+                    q=int(rng.integers(2, m + 1)))
+        x, y = g.node(), g.node()
+        g.arc(x, b[3][0])
+        g.arc(x, b[4][0])
+        g.arc(y, b[4][-1])
+        g.twin_arcs(g.arcs[n_arcs:])
         return b[0], b[1], True, b
     if kind in ("bubble", "shared", "clash", "palindrome", "zero_length"):
         b = _bubble(g, m)
@@ -221,13 +257,44 @@ def wave_case(name: str, c: int, m: int, seed: int):
     from_ed = np.concatenate([arcs[:, 0], np.full(pad, -1)])
     to_ed = np.concatenate([arcs[:, 1], np.full(pad, -1)])
     mult = np.concatenate([rng.integers(1, 30, len(arcs)), np.zeros(pad)])
+    from_node, to_node = end_nodes(e, arcs)
     return {"prev": np.array(g.prev, np.int64), "u": np.asarray(u, np.int64),
             "t0": np.asarray(t0, np.int64), "cmask": np.asarray(cmask, bool),
             "twin": np.array(g.twin, np.int64),
             "length": np.array(g.length, np.int64), "cvg": cvg,
             "deleted": rng.random(e) < 0.05,
             "from_ed": from_ed.astype(np.int64),
-            "to_ed": to_ed.astype(np.int64), "mult": mult.astype(np.int64)}
+            "to_ed": to_ed.astype(np.int64), "mult": mult.astype(np.int64),
+            "from_node": from_node, "to_node": to_node,
+            "no_cover": name == "no_cover"}
+
+
+def end_nodes(e: int, arcs) -> tuple:
+    """(from_node, to_node) of e edges under which every arc row (f, t)
+    joins: to_node[f] == from_node[t].  Each edge's start and end are
+    nodes, and an arc makes its from-edge's end and its to-edge's start
+    one node (union-find); an edge no arc touches keeps two nodes of its
+    own."""
+    parent = list(range(2 * e))
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+    for f, t in arcs:
+        if 0 <= f < e and 0 <= t < e:
+            parent[find(2 * f + 1)] = find(2 * t)
+    node = np.array([find(x) for x in range(2 * e)], np.int64)
+    return node[0::2].copy(), node[1::2].copy()
+
+
+def joins(new_f, new_t, from_node, to_node) -> bool:
+    """Whether every row with a from-edge joins (-1 rows are dropped)."""
+    f, t = np.asarray(new_f), np.asarray(new_t)
+    live = f >= 0
+    return bool((t[live] >= 0).all()) and bool(
+        (np.asarray(to_node)[f[live]] == np.asarray(from_node)[t[live]]).all())
 
 
 def chains_inputs(case, dev):
@@ -237,20 +304,25 @@ def chains_inputs(case, dev):
 
 
 def claim_inputs(case, m: int, seed: int, dev):
-    """The 15 inputs of ``claim_apply`` on ``dev``: ``chains_plain``'s
+    """The 17 inputs of ``claim_apply`` on ``dev``: ``chains_plain``'s
     outputs on the case's graph, ok = found on ~90% of the found rows,
     len_a and len_b the paths' summed lengths (as the identity check
-    gives them), and the graph's arrays."""
+    gives them), and the graph's arrays.  In the ``no_cover`` case every
+    third ok row loses its majority path (no cover for its minority
+    nodes; the front never gives such a row)."""
     rng = np.random.default_rng(seed)
     maj, mnr, tw_maj, tw_mnr, _s, ends, found, _n = wave.chains_plain(
         *chains_inputs(case, "cpu"), m)
     ok = found & torch.from_numpy(rng.random(found.shape[0]) < 0.9)
+    if case["no_cover"]:
+        bare = torch.nonzero(ok).flatten()[::3]
+        maj[bare], tw_maj[bare] = -1, -1
     length = torch.from_numpy(case["length"])
     sums = [wave._gather2(length, x, 0).sum(1) for x in (maj, mnr)]
     xs = (maj, mnr, tw_maj, tw_mnr, ends, ok, *sums,
           *(torch.from_numpy(case[k]) for k in (
               "cvg", "length", "twin", "deleted", "from_ed", "to_ed",
-              "mult")))
+              "mult", "from_node", "to_node")))
     return tuple(x.contiguous().to(dev) for x in xs)
 
 
@@ -286,7 +358,8 @@ def front_case(name: str, cand_cap: int, m: int, seed: int):
     out = {"n_edges": e, "deleted": base["deleted"].copy(),
            "cvg": base["cvg"].copy(), "twin": base["twin"],
            "length": base["length"], "from_ed": base["from_ed"],
-           "to_ed": base["to_ed"], "mult": base["mult"]}
+           "to_ed": base["to_ed"], "mult": base["mult"],
+           "from_node": base["from_node"], "to_node": base["to_node"]}
     if name == "ties":
         out["cvg"][:] = 7
     elif name == "few_values":
@@ -333,7 +406,7 @@ def front_inputs(case, dev):
 
 def back_inputs(case, m: int, cand_cap: int, seed: int, productive: bool,
                 dev):
-    """The 22 inputs of ``back`` on ``dev``: ``front_plain``'s outputs on
+    """The 24 inputs of ``back`` on ``dev``: ``front_plain``'s outputs on
     a ``front_case``, ok = found on ~90% of the found rows (none unless
     ``productive``), compared = ok and half the other found rows, len_a
     and len_b the paths' summed lengths, the coverage clipped into [0,
@@ -350,7 +423,8 @@ def back_inputs(case, m: int, cand_cap: int, seed: int, productive: bool,
     cvg = torch.from_numpy(case["cvg"]).clamp(0, MAX_COV)
     xs = (maj, mnr, tw_maj, tw_mnr, ends, ok, *sums, cvg, length,
           *(torch.from_numpy(np.asarray(case[k])) for k in (
-              "twin", "deleted", "from_ed", "to_ed", "mult")),
+              "twin", "deleted", "from_ed", "to_ed", "mult", "from_node",
+              "to_node")),
           compared, cmask, cid_arc, n_cand, n_back)
     failed = torch.from_numpy(case["failed"].copy())
     return (*(x.contiguous().to(dev) for x in xs), cand_cap, failed.to(dev))
@@ -476,8 +550,43 @@ def test_back_kernel_matches_plain(i):
     assert back_err(got, want, failed, failed_plain) == 0, (name, cap, m)
     merged = int(want[0][0])
     assert (merged > 0) == bool(xs[5].any())
-    if not merged and bool(xs[16].any()):
+    if not merged and bool(xs[18].any()):
         assert bool(failed.any())  # the examined rows were retired
+    scratch = wave.claim_scratch(dev, xs[8].shape[0])
+    assert bool((scratch == wave.EMPTY).all())
+
+
+def rule_back_inputs(name: str, m: int, seed: int, dev):
+    """The 24 inputs of ``back`` on one of the rule's cases
+    (``RULE_CASES``): ``claim_inputs`` of a ``wave_case`` of 64 rows,
+    every row examined (cmask, cid_arc its own row), compared = ok."""
+    case = wave_case(name, 64, m, seed)
+    xs = claim_inputs(case, m, seed, "cpu")
+    c = xs[0].shape[0]
+    ok = xs[5]
+    more = (ok.clone(), ok | (xs[1] >= 0).any(1), torch.arange(c),
+            torch.tensor(c), (xs[1] >= 0).any(1).sum())
+    failed = torch.zeros(xs[12].shape[0], dtype=torch.bool)
+    return (*(x.contiguous().to(dev) for x in xs + more), c,
+            failed.to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", RULE_CASES)
+@pytest.mark.parametrize("m", [3, 9, 30])
+def test_back_kernel_rule_cases(name, m):
+    """The back's kernels against ``back_plain`` where the arc rule
+    drops rows: the counts (the dropped rows among them), the rows, and
+    every row left joins."""
+    dev = _card()
+    xs = rule_back_inputs(name, m, 500 + m, dev)
+    failed, failed_plain = xs[-1], xs[-1].clone()
+    got = wave.back(*xs[:-1], failed)
+    want = wave.back_plain(*xs[:-1], failed_plain)
+    torch.cuda.synchronize()
+    assert int(want[0][0]) > 0 and int(want[0][4]) > 0
+    assert back_err(got, want, failed, failed_plain) == 0, (name, m)
+    assert joins(got[3].cpu(), got[4].cpu(), xs[15].cpu(), xs[16].cpu())
     scratch = wave.claim_scratch(dev, xs[8].shape[0])
     assert bool((scratch == wave.EMPTY).all())
 
