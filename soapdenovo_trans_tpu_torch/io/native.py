@@ -6,10 +6,11 @@ A copy of ``available``, ``read_batches`` and ``pack2bit`` (the 2-bit
 upload packer of ops/readpack.py) from
 ``soapdenovo_trans_tpu/io/native.py``: the port loads no module of the
 JAX package, so a run of the port stands on its own where only torch is
-installed.  The library is compiled with g++ (zlib linked) at first use
-into this package's ``_build/``; without a toolchain ``available()`` is
-False and the callers take the pure-Python readers, which yield the
-same batches.
+installed.  ``read_rows``, the unpadded blocks from which ``io/fastx``
+interleaves a paired library's mates, is the port's own.  The library
+is compiled with g++ (zlib linked) at first use into this package's
+``_build/``; without a toolchain ``available()`` is False and the
+callers take the pure-Python readers, which yield the same batches.
 """
 
 from __future__ import annotations
@@ -109,10 +110,10 @@ def available() -> bool:
     return _load() is not None
 
 
-def read_batches(path: str, batch_size: int, max_len: int
-                 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-    """Yield (codes (B, L) uint8, lengths (B,) int32) until EOF.
-    The final batch is zero-length-padded to batch_size."""
+def _decode(path: str, rows: int, max_len: int
+            ) -> Iterator[Tuple[np.ndarray, np.ndarray, int]]:
+    """Yield (codes (rows, L) uint8, lengths (rows,) int32, n) until
+    EOF, n > 0 the rows decoded; rows past n are length-0 padding."""
     lib = _load()
     if lib is None:
         raise RuntimeError("native decoder unavailable")
@@ -121,16 +122,32 @@ def read_batches(path: str, batch_size: int, max_len: int
         raise FileNotFoundError(path)
     try:
         while True:
-            codes = np.full((batch_size, max_len), 4, np.uint8)
-            lengths = np.zeros(batch_size, np.int32)
-            n = lib.fastx_next_batch(h, codes, lengths,
-                                     batch_size, max_len)
+            codes = np.full((rows, max_len), 4, np.uint8)
+            lengths = np.zeros(rows, np.int32)
+            n = lib.fastx_next_batch(h, codes, lengths, rows, max_len)
             if n < 0:
                 raise ValueError(f"{path}: malformed FASTA/FASTQ")
             if n == 0:
                 return
-            yield codes, lengths
-            if n < batch_size:
+            yield codes, lengths, n
+            if n < rows:
                 return
     finally:
         lib.fastx_close(h)
+
+
+def read_batches(path: str, batch_size: int, max_len: int
+                 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Yield (codes (B, L) uint8, lengths (B,) int32) until EOF.
+    The final batch is zero-length-padded to batch_size."""
+    for codes, lengths, _ in _decode(path, batch_size, max_len):
+        yield codes, lengths
+
+
+def read_rows(path: str, rows: int, max_len: int
+              ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Yield the reads of ``path`` as (codes (n, L) uint8, lengths (n,)
+    int32) blocks of ``rows`` reads, the last one shorter and none
+    padded, so a length-0 read stays apart from the end of the file."""
+    for codes, lengths, n in _decode(path, rows, max_len):
+        yield codes[:n], lengths[:n]
