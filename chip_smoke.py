@@ -9,11 +9,9 @@ Phases, each of which raises on failure:
 1. device and environment: the card's name and power limit (from
    ``nvidia-smi``), torch and CUDA versions; no card is an error;
 2. build the three sources of ``soapdenovo_trans_tpu_torch/csrc``, the
-   merge-path kernel, the Tour-Bus kernels (``lcs.cu``: the identity
-   check and the standalone LCS) and the wave around it (``wave.cu``:
-   the front and the back, and the first entries chains and
-   claim_apply), one ``nvcc`` each, started together; each build's
-   seconds are printed;
+   merge-path kernel, the Tour-Bus identity check (``lcs.cu``) and the
+   wave around it (``wave.cu``: the front and the back), one ``nvcc``
+   each, started together; each build's seconds are printed;
 3. each kernel against its plain PyTorch version on the card.  The
    kernels of ``kernels/wave``, on the cases of
    ``tests/test_torch_wave_kernels_gpu.py`` (loaded by path): the front
@@ -21,21 +19,19 @@ Phases, each of which raises on failure:
    padded rows, no candidate, fewer, as many and more than cand_cap; 8
    and 1,024 candidates, m = 3, 9 and 30), the back on each with ok rows
    and without (its E- and A-sized outputs compared where it merged),
-   chains and claim_apply on their cases (C = 64 at m = 3, 9 and 30,
-   random and mixed ones at C = 1,024), all exact; all four timed (CUDA
-   events, host us, the plain versions, the bounds, and for the front
-   the library call ``torch.topk`` of the candidates' packed keys) on
-   the mixed and random front cases at 1,024 candidates, m = 3.  The
+   and both on the wave cases (the front on each case's arc table, the
+   back with its ok rows; C = 64 at m = 3, 9 and 30, random and mixed
+   ones at C = 1,024), all exact; both timed (CUDA events, host us, the
+   plain versions, the bounds, and for the front the library call
+   ``torch.topk`` of the candidates' packed keys) on the mixed and
+   random front cases at 1,024 candidates, m = 3.  The
    identity kernel (``kernels/lcs.identity_check``, the wave's path
    lengths, gate, LCS and verdict in one launch): the identity cases of
    ``tests/test_torch_lcs_gpu.py`` (loaded by path), all five outputs
    exact, and the median CUDA-event times of the kernel and the plain
    version, with the host time of a call and the bound, at a real
    wave's shape (12 of 1,024 rows compared, paths of 24 bases) and at
-   1,024 x 384 with full paths.  The standalone LCS kernel
-   (``lcs_scores``, no longer on the main path): the LCS cases of the
-   same file, exact, and its times at a wave's 1,024 x 384, at la = lb
-   = 384 and at random wave lengths, with the bound.  The merge kernel:
+   1,024 x 384 with full paths.  The merge kernel:
    the five cases
    of ``tests/test_merge_path.py`` and two sorted 32M-row runs (one
    counting build unit each); rows and counts must be equal position by
@@ -63,12 +59,10 @@ Phases, each of which raises on failure:
    mesh of two logical shards of each device (``cpu,cpu`` and
    ``cuda:0,cuda:0``) must write the files of the one-device ``all``;
    the cuda runs must execute the front, identity and back kernels
-   once each a Tour-Bus wave of their contig stages (chains and
-   claim_apply never), and run
-   each pinch as a wave program
-   (``graph/tourbus.WaveProgram``): one CUDA graph captured a pinch of
-   two waves or more, every wave after the first a replay (the
-   standalone LCS kernel's launches, now 0, are printed);
+   once each a Tour-Bus wave of their contig stages, and run each pinch
+   as a wave program (``graph/tourbus.WaveProgram``): one CUDA graph
+   captured a pinch of two waves or more, every wave after the first a
+   replay;
 5. pregraph at real size: ``pregraph -K 23`` on 500,000 simulated
    read pairs (2x100 bp, insert 300, 5,000 transcripts of 1,500 bp,
    half with SNP isoforms, 0.2% errors, seed 0; 1,000,000 pairs until
@@ -81,21 +75,20 @@ Phases, each of which raises on failure:
    counts reset just before (``all`` resets the peak-memory statistics
    before each stage).  The front, identity and back kernels must
    execute once each a Tour-Bus wave, the pinch be captured once
-   and every later wave be a replay (the standalone LCS kernel's
-   launches, now 0, are printed; so are the captures, the replays and
-   the host microseconds of a replay, ``WaveRecorder``); the identity
+   and every later wave be a replay (the captures, the replays and the
+   host microseconds of a replay are printed, ``WaveRecorder``); the
+   identity
    inputs of every 512th wave are kept (16 waves: copies of their node
    lists and found flags, and the graph's tensors, which every wave
    shares; the peak bytes of contig, map and scaff then include them,
    and the script prints their bytes), and the front and back inputs
    of the same waves and of every 64th productive one, copied to the
-   host (``failed`` as the wave found it); after the run the front, the
-   back, chains (on the plain front's forest and rows) and claim_apply
-   (on the back's inputs) are each held against their plain version and
-   timed on them (the kernels on the waves the main path gives them;
-   the front beside ``torch.topk`` of its candidates' keys, the back on
-   the waves that merged and those that did not apart), and their
-   coverage must lie in [0, 16,000].  Until the
+   host (``failed`` as the wave found it); after the run the front and
+   the back are each held against their plain version and timed on
+   them (the kernels on the waves the main path gives them; the front
+   beside ``torch.topk`` of its candidates' keys, the back on the waves
+   that merged and those that did not apart), and their coverage must
+   lie in [0, 16,000].  Until the
    LCS kernel the contig stage at 1,000,000 pairs took about 950 s on an
    H100 (31,426 waves of 30 ms), more than this script's time allows.
    Checks: the .contig headers and sequence lengths agree with
@@ -155,9 +148,8 @@ Phases, each of which raises on failure:
 
 The lines before the last two are JSON objects of phase 9's, phase 8's,
 phase 7's and the main path's numbers, last to first; the
-second-to-last describes the seven kernels (merge_path, identity, lcs,
-front, back, chains, claim_apply; the standalone LCS one, chains and
-claim_apply with ``"on_main_path": false``); the last line is
+second-to-last describes the four hand-kernel entries (merge_path,
+identity, front, back); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing
 of the JAX package (``soapdenovo_trans_tpu``), which it checks after
 phase 9; the reads come from ``perf_e2e.synth`` and the fixtures of
@@ -319,69 +311,6 @@ def bound_of(moved: int, ops: int) -> tuple:
                                                            "operations")
 
 
-def lcs_bound_ms(la, lb, cap: int) -> tuple:
-    """(bound ms, what sets it) of one LCS call on this call's lengths.
-    The bytes it must move: each row's a[:min(la, cap)] and
-    b[:min(lb, cap)], and la, lb and out (one int64 each a row), over the
-    memory rate.  The operations: min(la, cap)·ceil(min(lb, cap)/64)
-    64-bit word steps, each four 64-bit operations (and, add, and-not,
-    or) done as eight 32-bit ones, over the CUDA cores' integer rate."""
-    p = la.shape[0]
-    n_a, n_b = la.clamp(0, cap), lb.clamp(0, cap)
-    moved = 24 * p + int(n_a.sum()) + int(n_b.sum())
-    steps = int((n_a * ((n_b + 63) // 64)).sum())
-    return bound_of(moved, 8 * steps)
-
-
-def check_lcs(lcs, a, b, la, lb, cap: int) -> int:
-    """LCS kernel vs plain version on one batch; returns the max abs
-    error, which must be 0."""
-    got = lcs.lcs_scores(a, b, la, lb, cap)
-    want = lcs.lcs_scores_plain(a, b, la, lb, cap)
-    torch.cuda.synchronize()
-    if got.shape != want.shape:
-        raise AssertionError(f"lcs shape {tuple(got.shape)} != "
-                             f"{tuple(want.shape)}")
-    err = int((got - want).abs().max()) if got.numel() else 0
-    if err:
-        raise AssertionError(f"LCS kernel differs from plain version "
-                             f"(P={a.shape[0]}, cap={cap}): max abs err "
-                             f"{err}")
-    return err
-
-
-def time_lcs(lcs, a, b, la, lb, cap: int, reps: int = 10) -> dict:
-    bound, by = lcs_bound_ms(la, lb, cap)
-    return {"p": a.shape[0], "cap": cap,
-            "mean_la": float(la.float().mean()),
-            "ms": cuda_ms(lambda: lcs.lcs_scores(a, b, la, lb, cap), reps),
-            "plain_ms": cuda_ms(lambda: lcs.lcs_scores_plain(
-                a, b, la, lb, cap), reps=3, warm=1),
-            "bound_ms": bound, "bound_by": by}
-
-
-def phase_lcs(lcs, dev) -> dict:
-    """The LCS kernel against its plain version on the card test's
-    cases, and timed at a wave's 1,024 x 384."""
-    cases = load_test("test_torch_lcs_gpu.py")
-    err = 0
-    for i, (name, p, cap) in enumerate(cases.GPU_CASES):
-        a, b, la, lb, cap = cases.gpu_case(name, p, cap, 100 + i)
-        err = max(err, check_lcs(lcs, *cases.to_device(a, b, la, lb, dev),
-                                 cap))
-        log(f"[lcs] {name} P={p} cap={cap}: equal to plain version "
-            f"(exact, tolerance 0)")
-    times = {}
-    p, cap = cases.WAVE_P, cases.WAVE_CAP
-    for name in ("full", "wave"):
-        a, b, la, lb, _ = cases.gpu_case(name, p, cap, 7)
-        t = cases.to_device(a, b, la, lb, dev)
-        err = max(err, check_lcs(lcs, *t, cap))
-        times[f"{name}_{p}x{cap}"] = time_lcs(lcs, *t, cap)
-    log("[lcs] " + json.dumps(times))
-    return {"max_abs_err": err, "synthetic": times}
-
-
 def host_us(fn, reps: int = 50) -> float:
     """Host microseconds a call of fn() takes to return (the enqueue,
     the device not waited for), after one warm-up."""
@@ -402,8 +331,9 @@ def identity_bound_ms(inputs, outputs) -> tuple:
     offset for each listed node of a compared row, the compared rows'
     bases, and the outputs (three int64 and two bool a row), over the
     memory rate.  The operations: the LCS's word steps, sum(len_a ·
-    ceil(len_b/64)) over the compared rows, eight 32-bit operations each
-    (as ``lcs_bound_ms``), over the CUDA cores' integer rate."""
+    ceil(len_b/64)) over the compared rows, each four 64-bit operations
+    (and, add, and-not, or) done as eight 32-bit ones, over the CUDA
+    cores' integer rate."""
     maj, mnr, found, length, _seq_off, _pool, _diff, _cap = inputs
     len_a, len_b, compared = outputs[:3]
     (c, m), e = maj.shape, length.shape[0]
@@ -479,32 +409,14 @@ def in_range(x, e: int) -> int:
     return int(((x >= 0) & (x < e)).sum())
 
 
-def chains_bound_ms(wave, inputs, outputs) -> tuple:
-    """(bound ms, what sets it) of one chains call on this call's inputs
-    and plain outputs.  The bytes it must move: u, t0 and cmask (17 B a
-    row); a prev entry for each walk step from a node in 0..E-1 and a
-    twin entry for each path node, fork and t0 in 0..E-1 (8 B each); the
-    outputs, four (C, m) int64 lists, s_node, ends, found and the count
-    (32·C·m + 41·C + 8 B).  The operations: (m + 2)(m + 1) int64 compares
-    a row for the meeting point and 2m(2m + 4) for the clash test, two
-    32-bit operations each."""
-    prev, u, t0, _cmask, _twin, m = inputs
-    (c,), e = u.shape, prev.shape[0]
-    maj, mnr, _tw_maj, _tw_mnr, s_node = outputs[:5]
-    steps = sum(in_range(wave._walk(prev, start, n)[:, :-1], e)
-                for start, n in ((t0, m + 2), (u, m + 1)))
-    twins = sum(in_range(x, e) for x in (maj, mnr, s_node, t0))
-    moved = 17 * c + 8 * (steps + twins) + 32 * c * m + 41 * c + 8
-    return bound_of(moved, 2 * c * ((m + 2) * (m + 1) + 2 * m * (2 * m + 4)))
-
-
 def claim_work(inputs) -> tuple:
-    """(bytes, operations) one claim_apply call on these inputs must move
-    and do.  The bytes: ok (1 B a row) and each ok row's four node lists,
-    ends, len_a and len_b (32·m + 48 B); cvg and deleted (9 B an edge)
-    and the arc rows (24 B a row); a length for each node in 0..E-1 of an
-    ok row's two paths and a twin for each of its cover nodes, at most one
-    a minority node (8 B each); the outputs, cvg2 and deleted2 (9 B an
+    """(bytes, operations) a productive back's claims, apply and arc rows
+    (``claim_apply_plain``'s part) must move and do on these inputs.  The
+    bytes: ok (1 B a row) and each ok row's four node lists, ends, len_a
+    and len_b (32·m + 48 B); cvg and deleted (9 B an edge) and the arc
+    rows (24 B a row); a length for each node in 0..E-1 of an ok row's
+    two paths and a twin for each of its cover nodes, at most one a
+    minority node (8 B each); the outputs, cvg2 and deleted2 (9 B an
     edge), the new arc rows (24 B a row) and the count.  The operations:
     each ok row's claims (4m + 4) and spans (m² for the covers), two
     32-bit operations each."""
@@ -517,13 +429,6 @@ def claim_work(inputs) -> tuple:
     return moved, 2 * n_ok * (4 * m + 4 + m * m)
 
 
-def claim_bound_ms(inputs) -> tuple:
-    """(bound ms, what sets it) of one claim_apply call on this call's
-    inputs (``claim_work``) over the memory rate and the CUDA cores'
-    integer rate."""
-    return bound_of(*claim_work(inputs))
-
-
 def front_bound_ms(inputs, outputs) -> tuple:
     """(bound ms, what sets it) of one front call on this call's inputs
     and plain outputs.  The bytes it must move: the arc rows, mult and
@@ -531,9 +436,10 @@ def front_bound_ms(inputs, outputs) -> tuple:
     B) and the coverage of each from-edge of a live arc (8 B); a twin for
     each path node, fork and t0 in 0..E-1 (8 B); the outputs, cid_arc, u,
     t0, cmask, the four (C, m) lists, ends and found (58 + 32·m B a row)
-    and the two counts.  The operations: the walks' compares as
-    ``chains_bound_ms`` counts them; the forest's and the select's few
-    operations a row are fewer than the bytes."""
+    and the two counts.  The operations: (m + 2)(m + 1) int64 compares a
+    row for the meeting point and 2m(2m + 4) for the clash test, two
+    32-bit operations each; the forest's and the select's few operations
+    a row are fewer than the bytes."""
     n_edges, deleted, cvg, _twin, from_ed, to_ed, mult, _failed, m, _cap = \
         inputs
     _cid, _cmask, _u, t0, maj, mnr, _tw_maj, _tw_mnr, ends = outputs[:9]
@@ -554,8 +460,8 @@ def front_bound_ms(inputs, outputs) -> tuple:
 
 def back_bound_ms(inputs, counts) -> tuple:
     """(bound ms, what sets it) of one back call on this call's inputs
-    and counts.  When it merged: what claim_apply moves and does
-    (``claim_work``), with compared and cmask (2 B a row) and the counts
+    and counts.  When it merged: what its claims, apply and arc rows move
+    and do (``claim_work``), with compared and cmask (2 B a row) and the counts
     read and written (48 B).  When nothing merged: ok, compared and cmask
     (3 B a row), the cid_arc entry and the failed byte of each row it
     marks (9 B), and the counts (48 B)."""
@@ -586,23 +492,6 @@ def front_topk_ms(wave, inputs, want, reps: int = 10) -> float:
         raise AssertionError("torch.topk's order differs from the front's")
     return cuda_ms(lambda: torch.topk(keys, k, largest=False, sorted=True),
                    reps)
-
-
-def check_wave(wave, cases, chains_in, claim_in) -> tuple:
-    """chains and claim_apply against their plain versions on one call's
-    inputs each: returns (max abs error, which must be 0, the plain
-    chains outputs)."""
-    got = wave.chains(*chains_in), wave.claim_apply(*claim_in)
-    want = wave.chains_plain(*chains_in), wave.claim_apply_plain(*claim_in)
-    torch.cuda.synchronize()
-    errs = [cases.max_abs_err(g, w) for g, w in zip(got, want)]
-    if any(errs):
-        raise AssertionError(f"wave kernels differ from their plain "
-                             f"versions (chains, claim_apply max abs err "
-                             f"{errs}; C={chains_in[1].shape[0]}, "
-                             f"m={chains_in[5]}, E={claim_in[8].shape[0]}, "
-                             f"A={claim_in[12].shape[0]})")
-    return max(errs), want[0]
 
 
 def check_front(wave, cases, inputs) -> tuple:
@@ -638,11 +527,11 @@ def check_back(wave, cases, inputs) -> tuple:
 
 
 def check_entries(wave, cases, front_in, back_in) -> tuple:
-    """The four entries of csrc/wave.cu against their plain versions on
-    one wave's front and back inputs: chains on the forest and the rows
-    of the plain front, claim_apply on the back's first 17 inputs; the
-    back's cid_arc, cmask and n_cand must be the plain front's.  Returns (max abs error, which must be 0, each entry's inputs, the
-    plain outputs of the front, the back and chains)."""
+    """The two entries of csrc/wave.cu against their plain versions on
+    one wave's front and back inputs; the back's cid_arc, cmask and
+    n_cand must be the plain front's.  Returns (max abs error, which must
+    be 0, each entry's inputs, the plain outputs of the front and the
+    back)."""
     err_f, want_f = check_front(wave, cases, front_in)
     err_b, want_b = check_back(wave, cases, back_in)
     # the back's inputs hold the rows the front gave on its inputs
@@ -651,19 +540,12 @@ def check_entries(wave, cases, front_in, back_in) -> tuple:
             and int(want_f[11]) == int(back_in[20])):
         raise AssertionError("the back's cid_arc, cmask or n_cand differ "
                              "from the plain front's on the same wave")
-    prev = wave.candidates_plain(*front_in[:3], *front_in[4:8],
-                                 front_in[9])[0]
-    _cid, cmask, u, t0 = want_f[:4]
-    chains_in = (prev, u, t0, cmask, front_in[3], front_in[8])
-    err_c, want_c = check_wave(wave, cases, chains_in, back_in[:17])
-    inputs = {"front": front_in, "back": back_in, "chains": chains_in,
-              "claim_apply": back_in[:17]}
-    return (max(err_f, err_b, err_c), inputs,
-            {"front": want_f, "back": want_b, "chains": want_c})
+    return (max(err_f, err_b), {"front": front_in, "back": back_in},
+            {"front": want_f, "back": want_b})
 
 
 def time_entries(wave, inputs, outs, reps: int = 10) -> dict:
-    """The four entries and their plain versions timed on one wave's
+    """The two entries and their plain versions timed on one wave's
     inputs (median CUDA-event ms of a wrapper call, its Python included;
     device ms of its kernels replayed from a CUDA graph, ``graph_ms``;
     host us of a call), with the bounds, and the front's library call
@@ -679,12 +561,7 @@ def time_entries(wave, inputs, outs, reps: int = 10) -> dict:
                   front_bound_ms(inputs["front"], outs["front"])),
         "back": (wave.back, wave.back_plain,
                  (*back_in[:-1], back_in[-1].clone()),
-                 back_bound_ms(back_in, outs["back"][0])),
-        "chains": (wave.chains, wave.chains_plain, inputs["chains"],
-                   chains_bound_ms(wave, inputs["chains"], outs["chains"])),
-        "claim_apply": (wave.claim_apply, wave.claim_apply_plain,
-                        inputs["claim_apply"],
-                        claim_bound_ms(inputs["claim_apply"]))}
+                 back_bound_ms(back_in, outs["back"][0]))}
     for name, (fn, plain, xs, bound) in calls.items():
         out[name] = {"ms": cuda_ms(lambda: fn(*xs), reps),
                      "device_ms": graph_ms(lambda: fn(*xs)),
@@ -700,18 +577,20 @@ def phase_wave(wave, dev) -> dict:
     """The kernels of csrc/wave.cu against their plain versions on the
     card test's cases (``tests/test_torch_wave_kernels_gpu.py``): the
     front on every front case (cand_cap 8 and 1,024; m = 3, 9 and 30),
-    the back on each with ok rows and without, chains and claim_apply on
-    every named case at m = 3, 9 and 30 and random and mixed ones at C =
-    1,024; all outputs exact (the back's E- and A-sized ones where it
-    merged).  Then all four timed on the ``mixed`` and ``random`` front
-    cases at cand_cap 1,024, m = 3, the back with ok rows."""
+    the back on each with ok rows and without, and both on every named
+    wave case at m = 3, 9 and 30 and random and mixed ones at C = 1,024
+    (the front on the case's arc table, the back with its ok rows); all
+    outputs exact (the back's E- and A-sized ones where it merged).  Then
+    both timed on the ``mixed`` and ``random`` front cases at cand_cap
+    1,024, m = 3, the back with ok rows."""
     cases = load_test("test_torch_wave_kernels_gpu.py")
     err = 0
     for i, (name, c, m) in enumerate(cases.GPU_CASES):
-        case = cases.wave_case(name, c, m, 300 + i)
-        err = max(err, check_wave(
-            wave, cases, (*cases.chains_inputs(case, dev), m),
-            cases.claim_inputs(case, m, i, dev))[0])
+        front_in = cases.case_front_inputs(cases.wave_case(name, c, m,
+                                                           300 + i), dev)
+        err = max(err, check_front(wave, cases, (*front_in, m, 1024))[0],
+                  check_back(wave, cases, cases.claim_back_inputs(
+                      name, c, m, 400 + i, dev))[0])
     for i, (name, cap, m) in enumerate(cases.FRONT_GPU_CASES):
         case = cases.front_case(name, cap, m, i)
         e, want = check_front(wave, cases,
@@ -726,8 +605,8 @@ def phase_wave(wave, dev) -> dict:
         merged += int(want[0][0]) > 0
         err = max(err, e)
     log(f"[wave] front {len(cases.FRONT_GPU_CASES)} cases, back "
-        f"{len(cases.BACK_GPU_CASES)} ({merged} merged), chains and "
-        f"claim/apply {len(cases.GPU_CASES)}: equal to their plain versions "
+        f"{len(cases.BACK_GPU_CASES)} ({merged} merged), both on "
+        f"{len(cases.GPU_CASES)} wave cases: equal to their plain versions "
         f"(exact, tolerance 0)")
     times = {}
     for name in ("mixed", "random"):
@@ -744,9 +623,9 @@ def phase_wave(wave, dev) -> dict:
 def wave_on_kept_inputs(wave, kept, dev) -> dict:
     """The kernels of csrc/wave.cu on the front and back inputs kept from
     the main path's waves (host copies, moved back to the card one wave at
-    a time): each of the four entries held against its plain version, the
+    a time): each of the two entries held against its plain version, the
     coverage checked to lie in [0, 16,000] (the claim key's ranks need
-    it), all four and their plain versions timed on each; medians and
+    it), both and their plain versions timed on each; medians and
     maxima, and the back's medians over the waves that merged and those
     that did not."""
     cases = load_test("test_torch_wave_kernels_gpu.py")
@@ -770,7 +649,7 @@ def wave_on_kept_inputs(wave, kept, dev) -> dict:
            "n_cand_median": statistics.median(r["n_cand"] for r in rows),
            "e": rows[0]["e"], "a": rows[0]["a"], "c": rows[0]["c"],
            "m": rows[0]["m"]}
-    for name in ("front", "back", "chains", "claim_apply"):
+    for name in ("front", "back"):
         got = [r[name] for r in rows]
         bound = sorted((g["bound_ms"], g["bound_by"]) for g in got)
         out[name] = {
@@ -901,50 +780,44 @@ class WaveRecorder:
 
 
 # the entries of the Tour-Bus wave's kernels, in the order of
-# ``wave_executions``: the three a wave runs, then the first entries of
-# csrc/wave.cu, which it no longer runs
-WAVE_ENTRIES = ("identity", "front", "back", "chains", "claim_apply")
+# ``wave_executions``
+WAVE_ENTRIES = ("identity", "front", "back")
 
 
 def wave_executions(lcs, wave) -> tuple:
-    """Executions of the three kernels of a Tour-Bus wave, the identity
-    check, front and back, then of chains and claim_apply (0 on every
-    path since the front and the back)."""
-    return (lcs.IDENTITY_LAUNCHES, wave.FRONT_LAUNCHES, wave.BACK_LAUNCHES,
-            wave.CHAINS_LAUNCHES, wave.CLAIM_APPLY_LAUNCHES)
+    """Executions of the three kernel entries of a Tour-Bus wave: the
+    identity check, the front and the back."""
+    return lcs.IDENTITY_LAUNCHES, wave.FRONT_LAUNCHES, wave.BACK_LAUNCHES
 
 
 def launch_numbers(launches) -> dict:
-    """A path's launches (merge, lcs, then ``wave_executions``) by name."""
-    return {"merge_launches": launches[0], "lcs_launches": launches[1],
+    """A path's launches (merge, then ``wave_executions``) by name."""
+    return {"merge_launches": launches[0],
             **{f"{name}_launches": n
-               for name, n in zip(WAVE_ENTRIES, launches[2:])}}
+               for name, n in zip(WAVE_ENTRIES, launches[1:])}}
 
 
 def reset_counts(merge_path, lcs, wave, tourbus) -> None:
     """Every kernel's launch count and the wave programs' captures and
     replays to 0."""
-    merge_path.LAUNCHES = lcs.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
+    merge_path.LAUNCHES = lcs.IDENTITY_LAUNCHES = 0
     wave.FRONT_LAUNCHES = wave.BACK_LAUNCHES = 0
-    wave.CHAINS_LAUNCHES = wave.CLAIM_APPLY_LAUNCHES = 0
     tourbus.CAPTURES = tourbus.REPLAYS = 0
 
 
 def check_wave_programs(tourbus, lcs, wave, waves, what: str) -> None:
     """The card's pinches ran as wave programs: one capture a pinch of two
-    waves or more, every later wave a replay, one execution of each
-    kernel of the wave (identity, front, back) a wave, and none of chains
-    or claim_apply.  ``waves``: the Tour-Bus waves of each pinch on the
-    card."""
+    waves or more, every later wave a replay, and one execution of each
+    kernel entry of the wave (identity, front, back) a wave.  ``waves``:
+    the Tour-Bus waves of each pinch on the card."""
     n = sum(waves)
     want = (sum(w >= 2 for w in waves), sum(max(w - 1, 0) for w in waves),
-            n, n, n, 0, 0)
+            n, n, n)
     got = (tourbus.CAPTURES, tourbus.REPLAYS, *wave_executions(lcs, wave))
     if got != want:
-        raise AssertionError(f"{what}: captures, replays, identity, front, "
-                             f"back, chains and claim_apply executions "
-                             f"{got}, not {want} for pinches of "
-                             f"{list(waves)} waves")
+        raise AssertionError(f"{what}: captures, replays, identity, front "
+                             f"and back executions {got}, not {want} for "
+                             f"pinches of {list(waves)} waves")
 
 
 def identity_on_wave_inputs(lcs, kept) -> dict:
@@ -1267,13 +1140,11 @@ def phase_cpu_gpu(cli, merge_path, lcs, wave, tourbus, pg_stage, perf_e2e,
                              f"{lcs.IDENTITY_LAUNCHES} times over {waves} "
                              f"Tour-Bus waves")
     check_wave_programs(tourbus, lcs, wave, pinches, "the cuda runs")
-    log(f"[parity] the cuda runs executed the identity, front, back, "
-        f"chains and claim/apply kernels {wave_executions(lcs, wave)} times, "
-        f"the first three once each a Tour-Bus wave; {tourbus.CAPTURES} wave "
-        f"captures and "
-        f"{tourbus.REPLAYS} replays over pinches of {pinches} waves; the "
-        f"standalone LCS kernel {lcs.LAUNCHES} times")
-    return (merge_path.LAUNCHES, lcs.LAUNCHES, *wave_executions(lcs, wave))
+    log(f"[parity] the cuda runs executed the identity, front and back "
+        f"kernels {wave_executions(lcs, wave)} times, once each a Tour-Bus "
+        f"wave; {tourbus.CAPTURES} wave captures and {tourbus.REPLAYS} "
+        f"replays over pinches of {pinches} waves")
+    return (merge_path.LAUNCHES, *wave_executions(lcs, wave))
 
 
 def valid_windows(cfg_path: str, k: int) -> int:
@@ -1302,8 +1173,7 @@ def phase_slice(cli, merge_path, lcs, wave, tourbus, cfg: str, tmp: str):
     res = run_cli(cli, cfg, out, K, "cuda")
     torch.cuda.synchronize()
     stage_s = time.time() - t0
-    launches = (merge_path.LAUNCHES, lcs.LAUNCHES,
-                *wave_executions(lcs, wave))
+    launches = (merge_path.LAUNCHES, *wave_executions(lcs, wave))
     peak = torch.cuda.max_memory_allocated()
     if launches[0] < 1:
         raise AssertionError("main path never launched the merge kernel")
@@ -1498,31 +1368,29 @@ def phase_all(cli, merge_path, lcs, wave, tourbus, smi: str, tmp: str,
         res = run_stage(cli, ["all", "-s", cfg, "-K", str(K), "-o", out],
                         "cuda")
     all_s = time.time() - t0
-    launches = (merge_path.LAUNCHES, lcs.LAUNCHES,
-                *wave_executions(lcs, wave))
+    launches = (merge_path.LAUNCHES, *wave_executions(lcs, wave))
     if launches[0] < 1:
         raise AssertionError("the main path never launched the merge "
                              "kernel")
     waves = res.contig.tourbus["waves"]
-    if not launches[2] == launches[3] == launches[4] == recorder.waves \
+    if not launches[1] == launches[2] == launches[3] == recorder.waves \
             == waves:
         raise AssertionError(
             f"the identity, front and back kernels executed "
-            f"{launches[2:5]} times in {recorder.waves} launched waves over "
+            f"{launches[1:]} times in {recorder.waves} launched waves over "
             f"{waves} Tour-Bus waves, not once each a wave")
     check_wave_programs(tourbus, lcs, wave, [waves], "all's contig stage")
     program = recorder.numbers()
     log(f"[all] identity, front and back kernel executions "
-        f"{launches[2:5]} = Tour-Bus waves; chains and claim/apply "
-        f"{launches[5:]}, standalone LCS kernel launches {launches[1]}; the "
-        f"wave program: " + json.dumps(program))
+        f"{launches[1:]} = Tour-Bus waves; the wave program: "
+        + json.dumps(program))
     id_wave = identity_on_wave_inputs(lcs, recorder.kept)
     log("[all] the identity kernel on the inputs of every 512th wave: "
         + json.dumps(id_wave))
     wave_real = wave_on_kept_inputs(wave, recorder.kept_wave, dev)
     del recorder
-    log("[all] the front, back, chains and claim/apply kernels on the "
-        "inputs of every 512th wave and every 64th productive one: "
+    log("[all] the front and back kernels on the inputs of every 512th "
+        "wave and every 64th productive one: "
         + json.dumps(wave_real))
 
     # the contig stage
@@ -1731,16 +1599,15 @@ def phase_flags(cli, merge_path, lcs, wave, tourbus, perf_e2e, smi: str,
     if cres.reps_split is None:
         raise AssertionError("contig -R did not read .path")
     check_contig_files(reps, cres.contigs.n)
-    launches = (merge_path.LAUNCHES, lcs.LAUNCHES,
-                *wave_executions(lcs, wave))
+    launches = (merge_path.LAUNCHES, *wave_executions(lcs, wave))
     if launches[0] < 1:
         raise AssertionError("phase 7 never launched the merge kernel")
     waves = cres.tourbus["waves"]
-    if not launches[2] == launches[3] == launches[4] == recorder.waves \
+    if not launches[1] == launches[2] == launches[3] == recorder.waves \
             == waves:
         raise AssertionError(
             f"the identity, front and back kernels executed "
-            f"{launches[2:5]} times in {recorder.waves} launched waves over "
+            f"{launches[1:]} times in {recorder.waves} launched waves over "
             f"{waves} Tour-Bus waves of contig -R")
     check_wave_programs(tourbus, lcs, wave, [waves], "contig -R")
     program = recorder.numbers()
@@ -1771,8 +1638,7 @@ def phase_flags(cli, merge_path, lcs, wave, tourbus, perf_e2e, smi: str,
         f"{cres.tourbus['s_per_wave'] * 1e3:.2f} ms ({program['captures']} "
         f"capture, {program['replays']} replays of "
         f"{program['host_us_replay']:.1f} host us) on {smi}; identity, "
-        f"front, back, chains and claim/apply kernel executions "
-        f"{launches[2:]}, standalone LCS kernel {launches[1]}")
+        f"front and back kernel executions {launches[1:]}")
     return launches, numbers, out
 
 
@@ -1859,8 +1725,7 @@ def phase_mesh(cli, merge_path, lcs, wave, tourbus, smi: str, tmp: str,
         "map": {"mapped": mres.mapped, "groups": mres.groups,
                 "phase_s": mres.phase_seconds, "exchanges": mres.exchanges,
                 "exchange_bytes": mres.exchange_bytes},
-        **launch_numbers((launches, lcs.LAUNCHES,
-                          *wave_executions(lcs, wave)))}
+        **launch_numbers((launches, *wave_executions(lcs, wave)))}
     log(f"[mesh] {numbers['phase_s']:.1f}s: pregraph "
         f"{seconds['pregraph']:.1f}s (" + ", ".join(
             f"{n} {t:.1f}" for n, t in res.phase_seconds.items()) +
@@ -1869,7 +1734,7 @@ def phase_mesh(cli, merge_path, lcs, wave, tourbus, smi: str, tmp: str,
         f"{seconds['map']:.1f}s, its three files as on one device, "
         f"{mres.exchanges} exchanges of {mres.exchange_bytes / 1e9:.2f} GB; "
         f"{MESH_SHARDS} logical shards on one card, {smi}")
-    return (launches, lcs.LAUNCHES, *wave_executions(lcs, wave)), numbers
+    return (launches, *wave_executions(lcs, wave)), numbers
 
 
 def load_test(name: str):
@@ -1930,14 +1795,13 @@ def phase_e2e(cli, merge_path, lcs, wave, tourbus, smi: str, tmp: str):
             f"run's")
     check_wave_programs(tourbus, lcs, wave, pinches,
                         "the e2e fixtures on cuda")
-    log(f"[e2e] identity, front, back, chains and claim/apply kernel "
-        f"executions {wave_executions(lcs, wave)}, the first three = "
-        f"Tour-Bus waves ({pinches} a "
+    log(f"[e2e] identity, front and back kernel executions "
+        f"{wave_executions(lcs, wave)} = Tour-Bus waves ({pinches} a "
         f"fixture; {tourbus.CAPTURES} captures, {tourbus.REPLAYS} "
-        f"replays); standalone LCS kernel launches {lcs.LAUNCHES}")
+        f"replays)")
     return {"card": smi, "phase_s": time.time() - t_phase,
             "fixtures": fixtures,
-            **launch_numbers((merge_path.LAUNCHES, lcs.LAUNCHES,
+            **launch_numbers((merge_path.LAUNCHES,
                               *wave_executions(lcs, wave)))}
 
 
@@ -1969,7 +1833,6 @@ def main() -> int:
 
     build_s = phase_build((merge_path, lcs, wave))
     lap("build")
-    lcs_timing = phase_lcs(lcs, dev)
     id_timing = phase_identity(lcs, dev)
     wave_timing = phase_wave(wave, dev)
     timing = phase_kernel(merge_path, dev)
@@ -2019,8 +1882,7 @@ def main() -> int:
                "all_500k": launches, "options_500k_220k": flag_launches,
                "mesh_4_shards_500k": mesh_launches}
     e2e_launches = [e2e_numbers[f"{k}_launches"] for k in (
-        "merge", "lcs", *WAVE_ENTRIES)]
-    lcs_wave = lcs_timing["synthetic"]["wave_1024x384"]
+        "merge", *WAVE_ENTRIES)]
     log(json.dumps({"kernels": [{
         "name": "merge_path", "route": "cuda",
         "source": "soapdenovo_trans_tpu_torch/csrc/merge_path.cu",
@@ -2034,40 +1896,23 @@ def main() -> int:
         "replaces": "soapdenovo_trans_tpu/graph/tourbus.py:116",
         "replaces_what": "the identity-check block of the jitted _wave: "
                          "_path_seq (:116-133) for each path, the length "
-                         "gate (:221-225), _lcs_scores (:77-96) and the "
+                         "gate (:221-225), the LCS scan (:77-96) and the "
                          "verdict (:230); XLA device code, not a Pallas "
                          "kernel",
-        "launches": launches[2],
+        "launches": launches[1],
         "launches_by_path": {
-            **{path: n[2] for path, n in by_path.items()},
-            "e2e_fixtures": e2e_launches[2]},
+            **{path: n[1] for path, n in by_path.items()},
+            "e2e_fixtures": e2e_launches[1]},
         "max_abs_err": max(id_timing["max_abs_err"], id_wave["max_abs_err"]),
         "ms": id_wave["ms"], "plain_ms": id_wave["plain_ms"],
         "bound_ms": id_wave["bound_ms"], "bound_by": id_wave["bound_by"],
         "library_ms": None, "host_us": id_wave["host_us"],
         "build_s": build_s["lcs.cu"], "wave_inputs": id_wave,
-        "synthetic": id_timing["synthetic"]}, {
-        "name": "lcs", "route": "cuda",
-        "source": "soapdenovo_trans_tpu_torch/csrc/lcs.cu",
-        "entry": "lcs_launch",
-        "replaces": "soapdenovo_trans_tpu/graph/tourbus.py:77",
-        "replaces_what": "_lcs_scores, the lax.scan at :95 inside the "
-                         "jitted _wave; a device loop, not a Pallas kernel",
-        "on_main_path": False,
-        "launches": launches[1],
-        "launches_by_path": {
-            **{path: n[1] for path, n in by_path.items()},
-            "e2e_fixtures": e2e_launches[1]},
-        "max_abs_err": lcs_timing["max_abs_err"],
-        "ms": lcs_wave["ms"], "plain_ms": lcs_wave["plain_ms"],
-        "bound_ms": lcs_wave["bound_ms"], "bound_by": lcs_wave["bound_by"],
-        "library_ms": None, "build_s": build_s["lcs.cu"],
-        "synthetic": lcs_timing["synthetic"]}, *({
+        "synthetic": id_timing["synthetic"]}, *({
         "name": name, "route": "cuda",
         "source": "soapdenovo_trans_tpu_torch/csrc/wave.cu",
         "entry": f"{name}_launch", "replaces": replaces,
         "replaces_what": what, "kernels_an_execution": parts,
-        "on_main_path": i < 5,
         "launches": launches[i],
         "launches_by_path": {
             **{path: n[i] for path, n in by_path.items()},
@@ -2095,7 +1940,7 @@ def main() -> int:
              "candidates' packed keys, the candidate order alone",
              "front_forest_kernel, front_cand_kernel, front_select_kernel "
              "(twice), front_count_kernel, front_scatter_kernel, "
-             "front_sort_kernel and chains_kernel", 3),
+             "front_sort_kernel and chains_kernel", 2),
             ("back", "soapdenovo_trans_tpu/graph/tourbus.py:221",
              "the rest of the jitted _wave from the verdicts on "
              "(:221-325): the counts, the claim arbitration, the positional "
@@ -2103,19 +1948,7 @@ def main() -> int:
              "rows' rewrite; and the pinch's failed update (:349-356); XLA "
              "device code, not a Pallas kernel",
              "back_head_kernel, then claim_kernel, apply_kernel and "
-             "arcs_kernel, which return at once when no row is ok", 4),
-            ("chains", "soapdenovo_trans_tpu/graph/tourbus.py:174",
-             "steps 3-4 of the jitted _wave up to the identity check "
-             "(:174-219): the backward walks, the first meeting point, the "
-             "path interiors, their twins and the clash test; XLA device "
-             "code, not a Pallas kernel; off the main path since the front",
-             "a memset and chains_kernel", 5),
-            ("claim_apply", "soapdenovo_trans_tpu/graph/tourbus.py:232",
-             "steps 5-6 of the jitted _wave (:232-325): the claim "
-             "arbitration, the positional cover, the deletes, the coverage "
-             "adds, the remap and the arc rows' rewrite; XLA device code, "
-             "not a Pallas kernel; off the main path since the back",
-             "claim_kernel, apply_kernel and arcs_kernel", 6)))]}))
+             "arcs_kernel, which return at once when no row is ok", 3)))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

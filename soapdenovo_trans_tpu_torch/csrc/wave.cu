@@ -1,8 +1,6 @@
 // The Tour-Bus wave for Hopper, around its identity check: the wave's front
 // (front_launch: from the arc table to the candidates' chains) and its back
-// (back_launch: from the verdicts to the counts and the `failed` mask), and
-// the two first entries they grew from, chains_launch and
-// claim_apply_launch, which the wave no longer calls.
+// (back_launch: from the verdicts to the counts and the `failed` mask).
 //
 // front_launch replaces steps 1-4 of the jitted JAX _wave up to the
 // identity check, soapdenovo_trans_tpu/graph/tourbus.py:140-219: the live
@@ -41,8 +39,8 @@
 //   sort_kernel, one block: a bitonic sort of the at most cand_cap picked
 //     (key, row) pairs in shared memory (1,024 x 8 B at the wave's cap)
 //     gives cid_arc's head, cmask, u and t0.
-//   chains_kernel, as chains_launch runs it, the count zeroed by
-//     forest_kernel (no memset).
+//   chains_kernel, one thread a candidate row, the count n_back zeroed by
+//     forest_kernel.
 // For each candidate row c, with the forest prev (E,), the arc u -> t0 and
 // cmask[c] (chains_kernel):
 //   chain_a = t0, prev(t0), ... (m + 2 nodes), chain_b = u, prev(u), ...
@@ -70,10 +68,10 @@
 //     closes the gate: the three kernels after it return at once, and
 //     cvg2, deleted2 and the new arc rows are left undefined (no caller
 //     reads them when nothing merged: the JAX pinch, WaveProgram.apply).
-//   claim_kernel, apply_kernel, arcs_kernel as claim_apply_launch runs
-//     them, n_merged going to counts[0] and the dropped rows to counts[4];
-//     each ok candidate that holds the least (rank, candidate) of every
-//     edge it claims wins, rank the minority path's coverage; each winner
+//   claim_kernel, apply_kernel, arcs_kernel behind the gate, n_merged
+//     going to counts[0] and the dropped rows to counts[4]; each ok
+//     candidate that holds the least (rank, candidate) of every edge it
+//     claims wins, rank the minority path's coverage; each winner
 //     deletes its minority nodes and their twins, adds their coverage onto
 //     the majority node that covers each one's midpoint (the last majority
 //     node if none does) and on that node's twin, and maps them onto it
@@ -108,11 +106,8 @@
 // is ok (91% of the 500k-pair stage's waves), must read ok, compared and
 // cmask (3 B a row) and cid_arc of the rows it marks: a few KB, one block
 // and three empty launches, so the launches set its time.  In a productive
-// wave it moves what claim_apply moves: about 18·E + 48·A B, and the end
-// nodes of the rows it remaps.
-// claim_apply_launch, three kernels as above without the gate and with
-// n_merged of its own, and chains_launch, a memset and chains_kernel, stay
-// as the first entries, held against their plain versions.
+// wave it moves about 18·E + 48·A B, and the end nodes of the rows it
+// remaps.
 //
 // Design.  chains_kernel: one thread a candidate, 32 candidates a block
 // (one warp), the two walks interleaved (their loads independent), each
@@ -666,7 +661,7 @@ __device__ __forceinline__ long long claim_key(const Claims& cl,
 
 // A gate of 0 (the back's head found no ok row) skips a kernel.
 __device__ __forceinline__ bool closed(const int* gate) {
-  return gate != nullptr && *gate == 0;
+  return *gate == 0;
 }
 
 __global__ void back_head_kernel(
@@ -715,7 +710,6 @@ __global__ void claim_kernel(Claims cl, const unsigned char* __restrict__ ok,
                              long long* __restrict__ cvg2,
                              unsigned char* __restrict__ deleted2,
                              long long* __restrict__ remap,
-                             u64* __restrict__ n_merged,
                              const int* __restrict__ gate, long long c,
                              long long e) {
   if (closed(gate)) return;
@@ -728,7 +722,6 @@ __global__ void claim_kernel(Claims cl, const unsigned char* __restrict__ ok,
       deleted2[i] = deleted[i];
       remap[i] = i;
     }
-    if (i == 0) *n_merged = 0;
     if (i < c && ok[i]) {
       const long long key = claim_key(cl, cvg, e, i);
       for (int k = 0; k < cl.count(); ++k) {
@@ -870,10 +863,8 @@ __global__ void arcs_kernel(Claims cl, const unsigned char* __restrict__ ok,
       }
     }
   }
-  if (dropped != nullptr) {
-    mine = __reduce_add_sync(FULL, mine);
-    if ((threadIdx.x & 31) == 0 && mine) atomicAdd(dropped, (u64)mine);
-  }
+  mine = __reduce_add_sync(FULL, mine);
+  if ((threadIdx.x & 31) == 0 && mine) atomicAdd(dropped, (u64)mine);
 }
 
 unsigned blocks(long long n, int threads) {
@@ -892,7 +883,7 @@ size_t chains_smem(long long m) {
 }
 
 // Steps 5-6 on `st`: claim_kernel, apply_kernel, arcs_kernel (each returns
-// at once when `gate` is given and 0).
+// at once when `gate` is 0).
 cudaError_t claims_apply_arcs(const Claims& cl, const void* ok,
                               const void* len_a, const void* len_b,
                               const void* cvg, const void* length,
@@ -916,7 +907,7 @@ cudaError_t claims_apply_arcs(const Claims& cl, const void* ok,
   claim_kernel<<<grid_for(n1), THREADS, 0, st>>>(
       cl, okp, static_cast<const long long*>(cvg),
       static_cast<const unsigned char*>(deleted), claimp, cvg2p, del2p,
-      remapp, mergedp, gate, c, e);
+      remapp, gate, c, e);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (c > 0) {
@@ -968,62 +959,6 @@ extern "C" long long wave_max_cand() { return MAX_CAND; }
 extern "C" long long front_work_bytes(long long a, long long e, long long c) {
   FrontWork w;
   return (long long)carve(nullptr, a, e, c, &w);
-}
-
-// Enqueues steps 3-4 of the wave for c candidate rows on `stream`: a
-// memset of n_back and one kernel.  prev and twin are (e,) int64, u and t0
-// (c,) int64, cmask (c,) bool; maj, mnr, tw_maj, tw_mnr (c, m) int64,
-// s_node (c,) int64, ends (c, 4) int64 and found (c,) bool are written, and
-// n_back (one int64) the count of rows with a meeting point.  All
-// contiguous on one card; 0 <= m <= wave_max_m().  Returns the CUDA error
-// (0 on success).
-extern "C" int chains_launch(const void* prev, const void* u, const void* t0,
-                             const void* cmask, const void* twin, void* maj,
-                             void* mnr, void* tw_maj, void* tw_mnr,
-                             void* s_node, void* ends, void* found,
-                             void* n_back, long long c, long long e,
-                             long long m, void* stream) {
-  if (c < 0 || e < 0 || m < 0 || m > MAX_M) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(n_back, 0, sizeof(long long), st);
-  if (err != cudaSuccess || c == 0) return (int)err;
-  chains_kernel<<<blocks(c, CHAIN_ROWS), CHAIN_ROWS, chains_smem(m),
-                  st>>>(
-      static_cast<const long long*>(prev), static_cast<const long long*>(u),
-      static_cast<const long long*>(t0),
-      static_cast<const unsigned char*>(cmask),
-      static_cast<const long long*>(twin), static_cast<long long*>(maj),
-      static_cast<long long*>(mnr), static_cast<long long*>(tw_maj),
-      static_cast<long long*>(tw_mnr), static_cast<long long*>(s_node),
-      static_cast<long long*>(ends), static_cast<unsigned char*>(found),
-      static_cast<u64*>(n_back), c, e, (int)m);
-  return (int)cudaGetLastError();
-}
-
-// Enqueues steps 5-6 of the wave on `stream`: three kernels.  maj, mnr,
-// tw_maj, tw_mnr are (c, m) int64, ends (c, 4) int64, ok (c,) bool, len_a
-// and len_b (c,) int64; cvg, length, twin (e,) int64 and deleted (e,) bool;
-// from_ed, to_ed, mult (a,) int64.  claim is the (>= e) int64 scratch, every
-// entry EMPTY on entry and again on exit; remap an (e,) int64 buffer.
-// cvg2 (e,) int64, deleted2 (e,) bool, new_f, new_t, new_mult (a,) int64
-// and n_merged (one int64) are written.  All contiguous on one card; 0 <= m
-// <= wave_max_m().  Returns the first CUDA error (0 on success).
-extern "C" int claim_apply_launch(
-    const void* maj, const void* mnr, const void* tw_maj, const void* tw_mnr,
-    const void* ends, const void* ok, const void* len_a, const void* len_b,
-    const void* cvg, const void* length, const void* twin,
-    const void* deleted, const void* from_ed, const void* to_ed,
-    const void* mult, const void* from_node, const void* to_node,
-    void* claim, void* remap, void* owner, void* cvg2, void* deleted2,
-    void* new_f, void* new_t, void* new_mult, void* n_merged, long long c,
-    long long m, long long e, long long a, void* stream) {
-  if (c < 0 || e < 0 || a < 0 || m < 0 || m > MAX_M)
-    return (int)cudaErrorInvalidValue;
-  return (int)claims_apply_arcs(
-      claims_of(maj, mnr, tw_maj, tw_mnr, ends, m), ok, len_a, len_b, cvg,
-      length, twin, deleted, from_ed, to_ed, mult, from_node, to_node, claim,
-      remap, owner, cvg2, deleted2, new_f, new_t, new_mult, n_merged,
-      nullptr, nullptr, c, e, a, static_cast<cudaStream_t>(stream));
 }
 
 // Enqueues the wave's front on `stream`: eight kernels.  deleted (e,) bool,
@@ -1095,13 +1030,18 @@ extern "C" int front_launch(
 }
 
 // Enqueues the wave's back on `stream`: head_kernel, then claim_kernel,
-// apply_kernel and arcs_kernel behind its gate.  claim_apply_launch's
-// inputs and outputs, and compared, cmask (c,) bool, cid_arc (c,) int64,
-// n_cand and n_back (one int64 each), failed (a,) bool, updated in place
-// when no row is ok; counts (4,) int64 (merged, overflow, backtracked,
-// compared) is written and gate (one int32) is scratch.  cvg2, deleted2,
-// new_f, new_t and new_mult are written only when a row is ok.  Returns
-// the first CUDA error (0 on success).
+// apply_kernel and arcs_kernel behind its gate.  maj, mnr, tw_maj, tw_mnr
+// are (c, m) int64, ends (c, 4) int64, ok, compared and cmask (c,) bool,
+// len_a, len_b and cid_arc (c,) int64; cvg, length, twin, from_node,
+// to_node (e,) int64 and deleted (e,) bool; from_ed, to_ed, mult (a,)
+// int64; n_cand and n_back one int64 each; failed (a,) bool, updated in
+// place when no row is ok.  claim is the (>= e) int64 scratch, every entry
+// EMPTY on entry and again on exit; remap (e,) int64 and owner (e,) int32
+// are scratch, gate one int32.  counts (5,) int64 (merged, overflow,
+// backtracked, compared, dropped rows) is written; cvg2 (e,) int64,
+// deleted2 (e,) bool, new_f, new_t and new_mult (a,) int64 only when a row
+// is ok.  All contiguous on one card; 0 <= m <= wave_max_m().  Returns the
+// first CUDA error (0 on success).
 extern "C" int back_launch(
     const void* maj, const void* mnr, const void* tw_maj, const void* tw_mnr,
     const void* ends, const void* ok, const void* len_a, const void* len_b,

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import bits, dictionary, kmer
+from ..ops.index import gather_or
 from . import unitigs
 
 _NO_EDGE = 2**30          # sorts after every real edge id
@@ -43,11 +44,6 @@ class ArcSet(NamedTuple):
     to_ed: torch.Tensor    # (A,) int64
     mult: torch.Tensor     # (A,) int64
     n: int
-
-
-def _gather_or(x, idx, fill):
-    ok = (idx >= 0) & (idx < x.shape[0])
-    return torch.where(ok, x[idx.clamp(0, x.shape[0] - 1)], fill)
 
 
 def build_patch(eg: unitigs.EdgeGraph, table: dictionary.KmerTable,
@@ -89,9 +85,9 @@ def thread_reads(seqs: torch.Tensor, lengths: torch.Tensor,
 
     stream = kmer.chop_reads(seqs, lengths, k)
     rows = dictionary.lookup(table.keys, stream.kmers)
-    node_live = (rows >= 0) & ~_gather_or(table.deleted, rows, True)
+    node_live = (rows >= 0) & ~gather_or(table.deleted, rows, True)
     u = torch.where(node_live, 2 * rows + stream.is_rc.to(torch.int64), -1)
-    eid = _gather_or(eg.node_edge, u, -1)
+    eid = gather_or(eg.node_edge, u, -1)
     eid = torch.where(stream.valid & node_live, eid, -1)
 
     interior = (eid >= 0).view(r, p)
@@ -105,10 +101,10 @@ def thread_reads(seqs: torch.Tensor, lengths: torch.Tensor,
 
     # (K+1)-mer patch lookups for adjacent vertex pairs
     stream1 = kmer.chop_reads(seqs, lengths, k + 1)
-    pedge = _gather_or(patch.edge,
-                       dictionary.lookup(patch.keys, stream1.kmers), -1)
+    pedge = gather_or(patch.edge,
+                      dictionary.lookup(patch.keys, stream1.kmers), -1)
     pedge = torch.where((pedge >= 0) & stream1.is_rc,
-                        _gather_or(eg.twin, pedge.clamp(min=0), -1), pedge)
+                        gather_or(eg.twin, pedge.clamp(min=0), -1), pedge)
     pedge = torch.where(stream1.valid, pedge, -1).view(r, p - 1)
     pair_ok = vertexish[:, :-1] & vertexish[:, 1:] & (pedge >= 0)
     pair_eid = torch.where(pair_ok, pedge, -1)
@@ -198,8 +194,8 @@ def _arcs_from_keys(keys, mult) -> ArcSet:
 
 def count_arcs(from_ed, to_ed, valid, twin) -> ArcSet:
     """Symmetrize (add1Arc semantics), then sort + count equal arcs."""
-    f = torch.cat([from_ed, _gather_or(twin, to_ed, _NO_EDGE)])
-    t = torch.cat([to_ed, _gather_or(twin, from_ed, _NO_EDGE)])
+    f = torch.cat([from_ed, gather_or(twin, to_ed, _NO_EDGE)])
+    t = torch.cat([to_ed, gather_or(twin, from_ed, _NO_EDGE)])
     keep = valid.repeat(2) & (f < _NO_EDGE)
     keys = torch.sort(_fold_pair(f[keep], t[keep])).values
     return _arcs_from_keys(keys, torch.ones_like(keys))

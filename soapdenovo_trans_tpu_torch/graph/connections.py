@@ -26,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from .arcs import _gather_or
+from ..ops.index import gather_or
 
 BIG = 2**30  # sorts after every real contig row
 
@@ -53,11 +53,11 @@ def pe_link_candidates(ctg, pos, twin, ctg_len, insert_size: int, k: int):
     e1, p1 = ctg[0::2], pos[0::2]
     bal_e2, p2 = ctg[1::2], pos[1::2]
     ok = (e1 >= 0) & (bal_e2 >= 0) & (e1 != bal_e2)
-    e2 = _gather_or(twin, bal_e2, -1)
-    bal_e1 = _gather_or(twin, e1, -1)
+    e2 = gather_or(twin, bal_e2, -1)
+    bal_e1 = gather_or(twin, e1, -1)
     ok &= (e2 >= 0) & (e1 != e2)  # same-contig pairs only re-estimate IS
-    len1 = _gather_or(ctg_len, e1, 0)
-    len2 = _gather_or(ctg_len, e2, 0)
+    len1 = gather_or(ctg_len, e1, 0)
+    len2 = gather_or(ctg_len, e2, 0)
     gap_ref = insert_size + k + p1 + p2 - len1 - len2
     ok &= (gap_ref >= -(insert_size // 10)) & (gap_ref <= insert_size)
     gap = gap_ref - k  # physical
@@ -84,10 +84,10 @@ def se_link_candidates(g_ctg, g_off, g_read_off, g_valid, r: int,
     coff = g_off.reshape(r, p)
     valid = g_valid.reshape(r, p)
     if unique is not None:
-        valid = valid & _gather_or(unique, ctg.reshape(-1),
-                                   False).reshape(r, p)
+        valid = valid & gather_or(unique, ctg.reshape(-1),
+                                  False).reshape(r, p)
     # skip self-twin (palindromic) contigs, like isSameAsTwin
-    valid = valid & (_gather_or(twin, ctg.reshape(-1), -1).reshape(r, p)
+    valid = valid & (gather_or(twin, ctg.reshape(-1), -1).reshape(r, p)
                      != ctg)
 
     key = torch.where(valid, off, BIG)
@@ -99,12 +99,12 @@ def se_link_candidates(g_ctg, g_off, g_read_off, g_valid, r: int,
     c1, c2 = sctg[:, :-1], sctg[:, 1:]
     ok = v[:, :-1] & v[:, 1:] & (c1 != c2)
     c1s = c1.reshape(-1).clamp(min=0)
-    len1 = _gather_or(ctg_len, c1s, 0).reshape(r, p - 1)
+    len1 = gather_or(ctg_len, c1s, 0).reshape(r, p - 1)
     gap_ref = srel[:, 1:] - srel[:, :-1] - (len1 - k)
     ok &= gap_ref >= 0
     gap = (gap_ref - k).reshape(-1)
-    tw1 = _gather_or(twin, c1s, -1).reshape(r, p - 1)
-    tw2 = _gather_or(twin, c2.reshape(-1).clamp(min=0), -1).reshape(r, p - 1)
+    tw1 = gather_or(twin, c1s, -1).reshape(r, p - 1)
+    tw2 = gather_or(twin, c2.reshape(-1).clamp(min=0), -1).reshape(r, p - 1)
     f = torch.cat([torch.where(ok, c1, -1).reshape(-1),
                    torch.where(ok, tw2, -1).reshape(-1)])
     t = torch.cat([torch.where(ok, c2, -1).reshape(-1),
@@ -146,9 +146,9 @@ def same_contig_fragments(ctg, pos, twin, ctg_len):
     Returns (sizes, valid) per pair."""
     e1, p1 = ctg[0::2], pos[0::2]
     bal_e2, p2 = ctg[1::2], pos[1::2]
-    e2 = _gather_or(twin, bal_e2, -1)
+    e2 = gather_or(twin, bal_e2, -1)
     ok = (e1 >= 0) & (bal_e2 >= 0) & (e1 == e2) & (e1 != bal_e2)
-    size = _gather_or(ctg_len, e1, 0) - p1 - p2
+    size = gather_or(ctg_len, e1, 0) - p1 - p2
     ok &= size > 0
     return torch.where(ok, size, 0), ok
 
@@ -159,7 +159,7 @@ def estimate_insert_size(ctg, pos, twin, ctg_len, declared: int,
     insert; falls back to the declared avg_ins below min_pairs
     observations.  Returns (estimate, observations)."""
     size, ok = same_contig_fragments(ctg, pos, twin, ctg_len)
-    ok = ok & (_gather_or(ctg_len, ctg[0::2], 0) > declared)
+    ok = ok & (gather_or(ctg_len, ctg[0::2], 0) > declared)
     n, total = torch.stack([ok.sum(), torch.where(ok, size, 0).sum()]).tolist()
     if n < min_pairs:
         return declared, n

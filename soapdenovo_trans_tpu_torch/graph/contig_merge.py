@@ -28,9 +28,9 @@ import numpy as np
 import torch
 
 from ..ops import bits, ranking
+from ..ops.index import gather_or, scatter, segment_sum
 from . import arcs as arcs_mod
-from .edge_clean import _gather_or, _segment_sum, rebuild_arcs
-from .unitigs import _scatter
+from .edge_clean import rebuild_arcs
 
 _BASE_LUT = np.frombuffer(bits.BASE_CHARS.encode(), np.uint8)
 
@@ -56,10 +56,10 @@ def _edge_degrees(aset: arcs_mod.ArcSet, e_cap: int, deleted):
     touch deleted edges (zero-multiplicity arcs count, as in the JAX
     package)."""
     live_arc = (aset.from_ed >= 0) & \
-        ~_gather_or(deleted, aset.from_ed, True) & \
-        ~_gather_or(deleted, aset.to_ed, True)
+        ~gather_or(deleted, aset.from_ed, True) & \
+        ~gather_or(deleted, aset.to_ed, True)
     f = torch.where(live_arc, aset.from_ed, e_cap)
-    out_deg = _segment_sum(live_arc.long(), f, e_cap)
+    out_deg = segment_sum(live_arc.long(), f, e_cap)
     only_to = torch.full((e_cap + 1,), -1, dtype=torch.int64, device=f.device)
     only_to[f] = torch.where(live_arc, aset.to_ed, -1)
     return out_deg, only_to[:e_cap], live_arc
@@ -70,20 +70,20 @@ def _chain_pointers(eg, aset: arcs_mod.ArcSet):
     me = torch.arange(e_cap, device=eg.length.device)
     deleted = eg.deleted
     out_deg, t, live_arc = _edge_degrees(aset, e_cap, deleted)
-    in_deg = _gather_or(out_deg, eg.twin, 0)  # in_deg(e) = out_deg(twin(e))
+    in_deg = gather_or(out_deg, eg.twin, 0)  # in_deg(e) = out_deg(twin(e))
     self_twin = eg.twin == me
 
     ok = (out_deg == 1) & ~deleted & ~self_twin & (t >= 0)
-    ok &= ~_gather_or(deleted, t, True)
-    ok &= _gather_or(in_deg, t, 0) == 1
-    ok &= ~_gather_or(self_twin, t, True)
+    ok &= ~gather_or(deleted, t, True)
+    ok &= gather_or(in_deg, t, 0) == 1
+    ok &= ~gather_or(self_twin, t, True)
     ok &= (t != me) & (t != eg.twin)
     nxt = torch.where(ok, t, -1)
 
     # backward pointer: prev[t] = e iff nxt[e] == t (unique by in_deg)
     exists = ~deleted & (me < eg.n_edges)
-    prev = torch.where(exists, _scatter(e_cap, torch.where(ok, t, e_cap),
-                                        me, -1), -1)
+    prev = torch.where(exists, scatter(e_cap, torch.where(ok, t, e_cap),
+                                       me, -1), -1)
     head, rank, is_head = ranking.list_rank(prev, exists)
     return head, rank, is_head, live_arc, nxt, exists
 
@@ -98,22 +98,22 @@ def _merge(eg, aset: arcs_mod.ArcSet, pointers, c_cap: int, s_cap: int):
     chain_of = torch.where(exists, cid_at_head[head], c_cap)
     chain_or_neg = torch.where(exists, chain_of, -1)
 
-    length = _segment_sum(torch.where(exists, eg.length, 0), chain_of, c_cap)
-    cvg_w = _segment_sum(torch.where(exists, eg.cvg * eg.length, 0),
-                         chain_of, c_cap)
+    length = segment_sum(torch.where(exists, eg.length, 0), chain_of, c_cap)
+    cvg_w = segment_sum(torch.where(exists, eg.cvg * eg.length, 0),
+                        chain_of, c_cap)
     cvg = torch.maximum(cvg_w // length.clamp(min=1),
                         torch.ones_like(cvg_w))
 
-    n_members = _segment_sum(exists.long(), chain_of, c_cap)
-    from_node = _scatter(c_cap, torch.where(is_head, chain_of, c_cap),
-                         eg.from_node, -1)
-    is_last = exists & (rank == _gather_or(n_members, chain_or_neg, 0) - 1)
+    n_members = segment_sum(exists.long(), chain_of, c_cap)
+    from_node = scatter(c_cap, torch.where(is_head, chain_of, c_cap),
+                        eg.from_node, -1)
+    is_last = exists & (rank == gather_or(n_members, chain_or_neg, 0) - 1)
     last_idx = torch.where(is_last, chain_of, c_cap)
-    to_node = _scatter(c_cap, last_idx, eg.to_node, -1)
-    last_edge = _scatter(c_cap, last_idx, me, -1)
+    to_node = scatter(c_cap, last_idx, eg.to_node, -1)
+    last_edge = scatter(c_cap, last_idx, me, -1)
 
     # twin chain: headed by twin(last edge of this chain)
-    twin_head_edge = _gather_or(eg.twin, last_edge, -1)
+    twin_head_edge = gather_or(eg.twin, last_edge, -1)
     twin_cid = torch.where(
         twin_head_edge >= 0,
         cid_at_head[head[twin_head_edge.clamp(0, e_cap - 1)]], -1)
@@ -146,11 +146,11 @@ def _merge(eg, aset: arcs_mod.ArcSet, pointers, c_cap: int, s_cap: int):
     seq_pool[dst] = eg.seq_pool[eg.seq_off[owner] + within]
 
     # ---- arc remap ----
-    consumed = live_arc & (_gather_or(nxt, aset.from_ed, -2) == aset.to_ed)
+    consumed = live_arc & (gather_or(nxt, aset.from_ed, -2) == aset.to_ed)
     keep = live_arc & ~consumed
     arcs = arcs_mod.ArcSet(
-        torch.where(keep, _gather_or(chain_of, aset.from_ed, -1), -1),
-        torch.where(keep, _gather_or(chain_of, aset.to_ed, -1), -1),
+        torch.where(keep, gather_or(chain_of, aset.from_ed, -1), -1),
+        torch.where(keep, gather_or(chain_of, aset.to_ed, -1), -1),
         torch.where(keep, aset.mult, 0), 0)
     return Contigs(from_node, to_node, length, cvg, twin_cid, contig_off,
                    seq_pool, c_cap, chain_or_neg, arcs)

@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import dictionary, ranking
+from ..ops.index import gather_or, scatter_true, segment_sum
 from . import arcs as arcs_mod
 
 MAX_WEAK_CVG = 30      # deleteWeakEdge caps cutoff at 30 (cvg x10 units)
@@ -42,21 +43,6 @@ MAX_ROUNDS = 64        # cut_tips / delete_short_components round caps
 _NO_KEY = 2**30        # key lane of a -1 arc row (sorts after real ids)
 _NO_QUERY = 2**29      # query lane of a missing twin (matches no row)
 _INT32_MIN = -(2**31)  # jax.ops.segment_max's empty-segment value
-
-
-_gather_or = arcs_mod._gather_or
-
-
-def _segment_sum(vals, seg, n: int):
-    """Sum of vals per segment id in [0, n]; id n is the drop slot."""
-    return vals.new_zeros(n + 1).index_add_(0, seg, vals)[:n]
-
-
-def _scatter_true(n: int, idx):
-    """(n,) bool, True at idx; idx == n drops.  No host value goes to
-    the device, so a CUDA graph can capture it."""
-    return torch.zeros(n + 1, dtype=torch.bool,
-                       device=idx.device).index_fill_(0, idx, True)[:n]
 
 
 def _empty_arcs(like) -> arcs_mod.ArcSet:
@@ -87,20 +73,20 @@ def _pair_lookup(aset: arcs_mod.ArcSet, f, t):
 
 def twin_arc_index(aset: arcs_mod.ArcSet, twin):
     """Row index of each arc's bal (twin) arc."""
-    return _pair_lookup(aset, _gather_or(twin, aset.to_ed, -1),
-                        _gather_or(twin, aset.from_ed, -1))
+    return _pair_lookup(aset, gather_or(twin, aset.to_ed, -1),
+                        gather_or(twin, aset.from_ed, -1))
 
 
 def _sym_drop(aset: arcs_mod.ArcSet, drop, twin):
     """Extend a drop mask to bal arcs (reference always zeroes both)."""
     ti = twin_arc_index(aset, twin)
     a = aset.from_ed.shape[0]
-    return drop | _scatter_true(a, torch.where(drop & (ti >= 0), ti, a))
+    return drop | scatter_true(a, torch.where(drop & (ti >= 0), ti, a))
 
 
 def out_weights(aset: arcs_mod.ArcSet, e_cap: int):
     """Total out-arc multiplicity per edge (in-flow = out of twin)."""
-    return _segment_sum(aset.mult, torch.where(
+    return segment_sum(aset.mult, torch.where(
         aset.from_ed >= 0, aset.from_ed, e_cap), e_cap)
 
 
@@ -112,15 +98,15 @@ def _live(eg):
 def delete_weak_edges(eg, cutoff: int):
     cutoff = min(cutoff, MAX_WEAK_CVG)
     weak = _live(eg) & (eg.cvg < cutoff)
-    weak = weak | _gather_or(weak, eg.twin, False)
+    weak = weak | gather_or(weak, eg.twin, False)
     n = int((weak & ~eg.deleted).sum())
     print(f"[edge_clean] weak edges (<{cutoff/10:.1f}x): {n} removed")
     return eg._replace(deleted=eg.deleted | weak)
 
 
 def delete_unlike_arcs(aset: arcs_mod.ArcSet, eg) -> arcs_mod.ArcSet:
-    mx = torch.maximum(_gather_or(eg.cvg, aset.from_ed, 0),
-                       _gather_or(eg.cvg, aset.to_ed, 0))
+    mx = torch.maximum(gather_or(eg.cvg, aset.from_ed, 0),
+                       gather_or(eg.cvg, aset.to_ed, 0))
     drop = (aset.mult > 0) & (
         (aset.mult * UNLIKE_DIV < mx) | (aset.mult < UNLIKE_MIN))
     drop = _sym_drop(aset, drop, eg.twin)
@@ -129,9 +115,9 @@ def delete_unlike_arcs(aset: arcs_mod.ArcSet, eg) -> arcs_mod.ArcSet:
 
 def delow_high_arc(aset: arcs_mod.ArcSet, eg, multi: int) -> arcs_mod.ArcSet:
     out_w = out_weights(aset, eg.length.shape[0])
-    in_w = _gather_or(out_w, eg.twin, 0)  # in-flow of e = out-flow of twin
-    f_in = _gather_or(in_w, aset.from_ed, 0)
-    t_out = _gather_or(out_w, aset.to_ed, 0)
+    in_w = gather_or(out_w, eg.twin, 0)  # in-flow of e = out-flow of twin
+    f_in = gather_or(in_w, aset.from_ed, 0)
+    t_out = gather_or(out_w, aset.to_ed, 0)
     heavy = (aset.mult > 0) & (f_in > 0) & \
         (aset.mult > f_in * multi) & (aset.mult > t_out * multi)
     return aset._replace(mult=torch.where(
@@ -142,7 +128,7 @@ def delete_simple_loops(aset: arcs_mod.ArcSet, eg) -> arcs_mod.ArcSet:
     self_loop = (aset.from_ed >= 0) & (aset.from_ed == aset.to_ed)
     # reciprocal: does (to, from) exist with mult > 0?
     rev = _pair_lookup(aset, aset.to_ed, aset.from_ed)
-    recip = (rev >= 0) & (_gather_or(aset.mult, rev, 0) > 0) & \
+    recip = (rev >= 0) & (gather_or(aset.mult, rev, 0) > 0) & \
         (aset.mult > 0) & (aset.from_ed != aset.to_ed)
     drop = _sym_drop(aset, self_loop | recip, eg.twin)
     return aset._replace(mult=torch.where(drop, 0, aset.mult))
@@ -154,11 +140,11 @@ def delete_light_arcs(aset: arcs_mod.ArcSet, eg,
     dA: % of in-flow / coverage (deleteLightOutArc/-FlowArc)."""
     out_w = out_weights(aset, eg.length.shape[0])
     # out-rate filter
-    tot = _gather_or(out_w, aset.from_ed, 0)
+    tot = gather_or(out_w, aset.from_ed, 0)
     drop1 = (aset.mult > 0) & (aset.mult * 100 <= tot * da)
     # flow filter: vs in-flow of from-edge, and vs coverage
-    f_in = _gather_or(_gather_or(out_w, eg.twin, 0), aset.from_ed, 0)
-    cov = _gather_or(eg.cvg, aset.from_ed, 0) // 10
+    f_in = gather_or(gather_or(out_w, eg.twin, 0), aset.from_ed, 0)
+    cov = gather_or(eg.cvg, aset.from_ed, 0) // 10
     drop2 = (aset.mult > 0) & (
         (aset.mult * 100 <= f_in * dA) | (aset.mult * 100 <= cov * dA))
     drop = _sym_drop(aset, drop1 | drop2, eg.twin)
@@ -168,8 +154,8 @@ def delete_light_arcs(aset: arcs_mod.ArcSet, eg,
 
 def _live_arcs(eg, aset: arcs_mod.ArcSet):
     return (aset.from_ed >= 0) & (aset.mult > 0) & \
-        ~_gather_or(eg.deleted, aset.from_ed, True) & \
-        ~_gather_or(eg.deleted, aset.to_ed, True)
+        ~gather_or(eg.deleted, aset.from_ed, True) & \
+        ~gather_or(eg.deleted, aset.to_ed, True)
 
 
 def _edge_chain_state(eg, aset: arcs_mod.ArcSet):
@@ -179,13 +165,13 @@ def _edge_chain_state(eg, aset: arcs_mod.ArcSet):
     e_cap = eg.length.shape[0]
     live_arc = _live_arcs(eg, aset)
     f = torch.where(live_arc, aset.from_ed, e_cap)
-    out_deg = _segment_sum(live_arc.long(), f, e_cap)
+    out_deg = segment_sum(live_arc.long(), f, e_cap)
     only_to = torch.full((e_cap + 1,), -1, dtype=torch.int64,
                          device=f.device)
     only_to[f] = torch.where(live_arc, aset.to_ed, -1)
     only_mult = torch.zeros_like(only_to)
     only_mult[f] = torch.where(live_arc, aset.mult, 0)
-    in_deg = _gather_or(out_deg, eg.twin, 0)
+    in_deg = gather_or(out_deg, eg.twin, 0)
     max_in_mult = torch.full_like(only_to, _INT32_MIN).scatter_reduce_(
         0, torch.where(live_arc, aset.to_ed, e_cap),
         torch.where(live_arc, aset.mult, 0), "amax", include_self=True)
@@ -207,34 +193,34 @@ def _cut_tips_once(eg, aset: arcs_mod.ArcSet, cut_len: int):
     head_cand = walkable & (in_deg == 0)
     # prev pointer along unique-arc linkage within walkable set
     nxt = torch.where(walkable & (out_deg == 1), only_to, -1)
-    nxt = torch.where(_gather_or(walkable, nxt, False), nxt, -1)
+    nxt = torch.where(gather_or(walkable, nxt, False), nxt, -1)
     prev = torch.full((e_cap + 1,), -1, dtype=torch.int64, device=me.device)
     prev[torch.where(nxt >= 0, nxt, e_cap)] = me
     prev = torch.where(walkable & (in_deg == 1), prev[:e_cap], -1)
     head, rank, _ = ranking.list_rank(prev, walkable)
 
-    on_tip = walkable & _gather_or(head_cand, head, False)
+    on_tip = walkable & gather_or(head_cand, head, False)
     tip_head = torch.where(on_tip, head, e_cap)
-    tip_len = _segment_sum(torch.where(on_tip, eg.length, 0), tip_head, e_cap)
-    n_members = _segment_sum(on_tip.long(), tip_head, e_cap)
-    short = _gather_or(tip_len, head, 1 << 30) < cut_len
+    tip_len = segment_sum(torch.where(on_tip, eg.length, 0), tip_head, e_cap)
+    n_members = segment_sum(on_tip.long(), tip_head, e_cap)
+    short = gather_or(tip_len, head, 1 << 30) < cut_len
 
-    is_last = on_tip & (rank == _gather_or(n_members, head, 0) - 1)
+    is_last = on_tip & (rank == gather_or(n_members, head, 0) - 1)
     join = torch.where(is_last & (out_deg == 1), only_to, -1)
     join_mult = torch.where(is_last, only_mult, 0)
     # dominance at the join: the tip survives if its arc into the join
     # is the unique strongest in-arc (isUnreliableTip caseD/E)
-    jmax = _gather_or(max_in_mult, join, 0)
-    join_in = _gather_or(in_deg, join, 0)
+    jmax = gather_or(max_in_mult, join, 0)
+    join_in = gather_or(in_deg, join, 0)
     clip = is_last & short & (
         (join < 0)                      # dangles into nothing (caseB)
         | (join_in < 2)                 # joins a non-branch (caseC-ish)
         | (join_mult == 1)              # caseD
         | (jmax > join_mult)            # caseE
     )
-    clip_at_head = _scatter_true(e_cap, torch.where(clip, head, e_cap))
-    doomed = on_tip & _gather_or(clip_at_head, head, False)
-    doomed = doomed | _gather_or(doomed, eg.twin, False)
+    clip_at_head = scatter_true(e_cap, torch.where(clip, head, e_cap))
+    doomed = on_tip & gather_or(clip_at_head, head, False)
+    doomed = doomed | gather_or(doomed, eg.twin, False)
     return eg.deleted | doomed, (doomed & ~eg.deleted).sum()
 
 
@@ -278,7 +264,7 @@ def delete_short_components(eg, aset: arcs_mod.ArcSet,
         new.scatter_reduce_(0, f_or_drop, lt, "amin", include_self=True)
         new.scatter_reduce_(0, t_or_drop, lf, "amin", include_self=True)
         new = new[:e_cap]
-        tw_lab = torch.where(live, _gather_or(new, eg.twin, e_cap), e_cap)
+        tw_lab = torch.where(live, gather_or(new, eg.twin, e_cap), e_cap)
         return torch.where(live, torch.minimum(new, tw_lab), e_cap)
 
     for _ in range(max_rounds):
@@ -289,9 +275,9 @@ def delete_short_components(eg, aset: arcs_mod.ArcSet,
 
     # component length, counting each twin pair once
     counted = live & (me <= eg.twin)
-    comp_len = _segment_sum(torch.where(counted, eg.length, 0),
-                            torch.where(live, label, e_cap), e_cap)
-    doomed = live & (_gather_or(comp_len, label, 1 << 30) < cutoff)
+    comp_len = segment_sum(torch.where(counted, eg.length, 0),
+                           torch.where(live, label, e_cap), e_cap)
+    doomed = live & (gather_or(comp_len, label, 1 << 30) < cutoff)
     n = int(doomed.sum())
     print(f"[edge_clean] short components (<{cutoff}bp): {n} edges removed")
     return eg._replace(deleted=eg.deleted | doomed)
@@ -301,8 +287,8 @@ def compact_arcs(aset: arcs_mod.ArcSet, eg) -> arcs_mod.ArcSet:
     """removeArc/removeDeadArcs: drop zero-mult arcs and arcs touching
     deleted edges (the table is re-sorted without them)."""
     dead = (aset.mult <= 0) | (aset.from_ed < 0) | \
-        _gather_or(eg.deleted, aset.from_ed, True) | \
-        _gather_or(eg.deleted, aset.to_ed, True)
+        gather_or(eg.deleted, aset.from_ed, True) | \
+        gather_or(eg.deleted, aset.to_ed, True)
     return rebuild_arcs(torch.where(dead, -1, aset.from_ed),
                         torch.where(dead, -1, aset.to_ed),
                         torch.where(dead, 0, aset.mult), eg.twin)

@@ -20,24 +20,11 @@ from __future__ import annotations
 import torch
 
 from ..ops import dictionary, ranking
+from ..ops.index import gather_or, scatter_true
 from . import dbg as dbg_mod
 
 DEFAULT_MINOR_PCT = 5   # reference -i dd, global.h:110
 TIP_FACTOR = 2          # cut_len = 2 * K (cutTipPreGraph.c:347)
-
-
-def _gather_or(x, idx, fill):
-    """x[idx], or ``fill`` where idx is out of range."""
-    ok = (idx >= 0) & (idx < x.shape[0])
-    return torch.where(ok, x[idx.clamp(0, x.shape[0] - 1)], fill)
-
-
-def _mark(size: int, idx, dev) -> torch.Tensor:
-    """Bool (size,) set at idx; idx == size is dropped.  Every write is
-    True, so duplicate indices cannot disagree."""
-    hits = torch.zeros(size + 1, dtype=torch.bool, device=dev)
-    hits[idx] = True
-    return hits[:size]
 
 
 def _unique_out_base(exists: torch.Tensor) -> torch.Tensor:
@@ -56,7 +43,7 @@ def _minor_out(table: dictionary.KmerTable, graph, pct: int):
     # delete neighbour when count/max < pct/100 <=> 100*count < pct*max
     weak = graph.exists & branchy & (ncount > 0) & \
         (100 * ncount < pct * max_n)
-    hits = _mark(cap, torch.where(weak, succ_row, cap), succ_row.device)
+    hits = scatter_true(cap, torch.where(weak, succ_row, cap))
     return table.deleted | hits, int((hits & ~table.deleted).sum())
 
 
@@ -86,8 +73,8 @@ def _tip_prev(table: dictionary.KmerTable, graph, thin: bool):
 
     member = elig | head_cand
     prev = torch.where(
-        elig & (pred >= 0) & _gather_or(member, pred, False) &
-        (_gather_or(graph.out_deg, pred, 0) == 1), pred, -1)
+        elig & (pred >= 0) & gather_or(member, pred, False) &
+        (gather_or(graph.out_deg, pred, 0) == 1), pred, -1)
     prev = torch.where(member, prev, -1)
     return prev, member, head_cand, in_deg
 
@@ -95,7 +82,7 @@ def _tip_prev(table: dictionary.KmerTable, graph, thin: bool):
 def _tip_chains(head, rank, member, head_cand):
     """Tip pass step 3: chain membership + per-chain length."""
     two_cap = head.shape[0]
-    on_tip = member & _gather_or(head_cand, head, False)
+    on_tip = member & gather_or(head_cand, head, False)
     chain_len = torch.zeros(two_cap + 1, dtype=torch.int64,
                             device=head.device).scatter_reduce_(
         0, torch.where(on_tip, head, two_cap),
@@ -110,7 +97,7 @@ def _tip_clip(table, graph, head, rank, on_tip, chain_len, in_deg,
     two_cap = 2 * cap
     dev = head.device
     nodes = torch.arange(two_cap, device=dev)
-    len_at_head = _gather_or(chain_len, head, 0)
+    len_at_head = gather_or(chain_len, head, 0)
 
     is_last = on_tip & (rank == len_at_head - 1)
     arc = 4 * nodes + _unique_out_base(graph.exists)
@@ -119,8 +106,8 @@ def _tip_clip(table, graph, head, rank, on_tip, chain_len, in_deg,
     # join's max in-cov = max out_cov of twin(join)
     join_tw = dbg_mod.twin(join.clamp(min=0))
     join_max_in = graph.out_cov.view(-1, 4)[join_tw].amax(1)
-    join_in_deg = _gather_or(in_deg, join, 0)
-    join_out_deg = _gather_or(graph.out_deg, join, 0)
+    join_in_deg = gather_or(in_deg, join, 0)
+    join_out_deg = gather_or(graph.out_deg, join, 0)
     # reference: sum of join's branches == 1 -> the whole component
     # dangles; clip unconditionally (and the join dies too)
     join_dangling = is_last & (join >= 0) & \
@@ -133,17 +120,17 @@ def _tip_clip(table, graph, head, rank, on_tip, chain_len, in_deg,
     # a tip with no join at all (isolated chain) — clip it too
     clip_here = clip_here | (is_last & (join < 0))
 
-    clip_at_head = _mark(two_cap, torch.where(clip_here, head, two_cap),
-                         dev)
+    clip_at_head = scatter_true(two_cap,
+                                torch.where(clip_here, head, two_cap))
     ok_head = clip_at_head & (chain_len <= TIP_FACTOR * k)
-    head_ok = _gather_or(ok_head, head, False)
+    head_ok = gather_or(ok_head, head, False)
     doomed = on_tip & head_ok
     # joins of dangling single-link components die with the chain
     join_doomed_at = torch.where(join_dangling & head_ok, join, -1)
 
-    hits = _mark(cap, torch.cat([
+    hits = scatter_true(cap, torch.cat([
         torch.where(doomed, nodes >> 1, cap),
-        torch.where(join_doomed_at >= 0, join_doomed_at >> 1, cap)]), dev)
+        torch.where(join_doomed_at >= 0, join_doomed_at >> 1, cap)]))
     return table.deleted | hits, int((hits & ~table.deleted).sum())
 
 

@@ -82,15 +82,6 @@ def _params_for(merge_level: int) -> Tuple[int, int]:
     return 30, 10
 
 
-def _lcs_scores(a, b, la, lb, cap: int):
-    """LCS length between a[:la] and b[:lb] per batch row — the
-    identity measure for compareSequences' F-matrix check
-    (bubble.c:425-497): matches / max(len) >= 0.9 accepts.  One launch
-    of the LCS kernel on the card (``kernels/lcs.py``).  The wave does
-    not call it: ``lcs.identity_check`` is its whole identity check."""
-    return lcs.lcs_scores(a, b, la, lb, cap)
-
-
 def _wave_parts(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet, failed,
                 mark, m_max: int, diff: int, seq_cap: int, cand_cap: int):
     """front -> identity check -> back on one wave's state; the back
@@ -130,8 +121,8 @@ def _wave(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet, failed,
     """One wave in the outputs of the JAX ``_wave``, ``failed`` left as it
     is: (cvg2, deleted2, new_f, new_t, new_mult, n_backtracked,
     n_compared, n_merged, overflow, cid_arc, fail_mark); the arc rows
-    follow the port's rule (``wave.claim_apply``).  On a card the first
-    five are undefined when n_merged == 0 (the back skips them)."""
+    follow the port's rule (``wave.claim_apply_plain``).  On a card the
+    first five are undefined when n_merged == 0 (the back skips them)."""
     counts, outs, cid_arc, cmask, ok = _wave_parts(
         eg, aset, failed, failed.clone(), m_max, diff, seq_cap, cand_cap)
     # examined candidates rejected by the checks themselves (not by

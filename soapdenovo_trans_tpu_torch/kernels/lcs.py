@@ -1,22 +1,21 @@
-"""The Hopper kernels of the Tour-Bus identity check: the LCS lengths
-of a batch of byte-string pairs, and the wave's whole identity check.
+"""The Hopper kernel of the Tour-Bus wave's identity check, and the
+plain LCS it stands for.
 
-``lcs_scores`` replaces the JAX package's ``graph/tourbus.py:77-96``
-``_lcs_scores``, a 384-step ``lax.scan`` inside the jitted Tour-Bus
-wave (an XLA device loop, not a Pallas kernel).  ``identity_check``
-replaces the identity-check block of that wave: ``_path_seq`` for each
-path (:116-133), the length gate (:221-225), ``_lcs_scores`` and the
-verdict (:230); the wave calls it once.  The CUDA source of both is
-``csrc/lcs.cu`` in this package (``lcs_launch``: a bit-parallel LCS, one
-warp a pair; ``identity_launch``: one thread a row, the bases read from
-the edge pool); it is compiled for ``sm_90a`` with ``nvcc`` at first use
-into ``_build/`` and loaded with ``ctypes`` (``kernels/_nvcc.py``).
+``identity_check`` replaces the identity-check block of the JAX
+package's jitted Tour-Bus wave (``soapdenovo_trans_tpu/graph/
+tourbus.py``): ``_path_seq`` for each path (:116-133), the length gate
+(:221-225), the LCS (:77-96, a 384-step ``lax.scan``; here
+``lcs_scores_plain``) and the verdict (:230); the wave calls it once.
+Its CUDA source is ``csrc/lcs.cu`` in this package (``identity_launch``:
+one thread a row, the bases read from the edge pool, a bit-parallel
+LCS); it is compiled for ``sm_90a`` with ``nvcc`` at first use into
+``_build/`` and loaded with ``ctypes`` (``kernels/_nvcc.py``).
 
-Each wrapper launches its kernel for CUDA tensors and runs its plain
-PyTorch version (``lcs_scores_plain``, ``identity_check_plain``) only
-for CPU tensors.  ``identity_check`` may be captured into a CUDA graph
-(the Tour-Bus wave is, ``graph/tourbus.WaveProgram``): its launch sets
-no attribute and reads nothing back, and its counter counts executions.
+The wrapper launches the kernel for CUDA tensors and runs its plain
+PyTorch version (``identity_check_plain``) only for CPU tensors.  It
+may be captured into a CUDA graph (the Tour-Bus wave is,
+``graph/tourbus.WaveProgram``): its launch sets no attribute and reads
+nothing back, and its counter counts executions.
 """
 
 from __future__ import annotations
@@ -26,13 +25,13 @@ import os
 
 import torch
 
+from ..ops.index import gather2
 from . import _nvcc
 
 SOURCE = os.path.join(_nvcc.CSRC, "lcs.cu")
-MAX_CAP = 512  # the kernels keep at most 512 bits of V a pair
+MAX_CAP = 512  # the kernel keeps at most 512 bits of V a row (seq_cap)
 MAX_SLOTS = 64  # node slots a path in identity_check (its shared memory)
 
-LAUNCHES = 0  # lcs_launch launches since the last reset (plain runs not counted)
 # identity_launch executions since the last reset: each launch outside a
 # CUDA graph capture, and each replay of a graph that holds one (the
 # graph's owner adds them, ``graph/tourbus.WaveProgram``)
@@ -52,21 +51,17 @@ def _load():
     global _LIB
     if _LIB is None:
         lib = _nvcc.load(SOURCE)
-        lib.lcs_launch.restype = ctypes.c_int
-        lib.lcs_launch.argtypes = ([ctypes.c_void_p] * 5
-                                   + [ctypes.c_longlong] * 2
-                                   + [ctypes.c_void_p])
         lib.identity_launch.restype = ctypes.c_int
         lib.identity_launch.argtypes = ([ctypes.c_void_p] * 11
                                         + [ctypes.c_longlong] * 6
                                         + [ctypes.c_void_p])
         lib.identity_reserve.restype = ctypes.c_int
         lib.identity_reserve.argtypes = []
-        lib.lcs_max_cap.restype = ctypes.c_longlong
-        lib.lcs_max_cap.argtypes = []
-        if lib.lcs_max_cap() != MAX_CAP:
+        lib.identity_max_cap.restype = ctypes.c_longlong
+        lib.identity_max_cap.argtypes = []
+        if lib.identity_max_cap() != MAX_CAP:
             raise RuntimeError("csrc/lcs.cu and kernels/lcs.py disagree "
-                               "on the longest row")
+                               "on the longest path sequence")
         _LIB = lib
     return _LIB
 
@@ -87,61 +82,14 @@ def _reserve(lib, dev) -> None:
     _RESERVED.add(dev.index)
 
 
-def _check(a, b, la, lb, cap: int) -> None:
-    if not (a.device == b.device == la.device == lb.device):
-        raise ValueError("LCS inputs must lie on one device")
-    if a.dtype != torch.uint8 or b.dtype != torch.uint8:
-        raise TypeError("a and b must be uint8")
-    if la.dtype != torch.int64 or lb.dtype != torch.int64:
-        raise TypeError("la and lb must be int64")
-    if not 0 <= cap <= MAX_CAP:
-        raise ValueError(f"cap {cap} outside the kernel's 0..{MAX_CAP}")
-    p = a.shape[0] if a.dim() == 2 else -1
-    if a.shape != (p, cap) or b.shape != (p, cap) or \
-            la.shape != (p,) or lb.shape != (p,):
-        raise ValueError(f"a and b must be (P, {cap}) with (P,) lengths, "
-                         f"got {tuple(a.shape)}, {tuple(b.shape)}, "
-                         f"{tuple(la.shape)}, {tuple(lb.shape)}")
-    if not all(x.is_contiguous() for x in (a, b, la, lb)):
-        raise ValueError("LCS inputs must be contiguous")
-
-
-def lcs_scores(a, b, la, lb, cap: int):
-    """(P,) int64: the length of the longest common subsequence of
-    a[r, :min(la[r], cap)] and b[r, :min(lb[r], cap)] for each row r
-    (a length <= 0 is an empty string).  a, b: (P, cap) uint8; la, lb:
-    (P,) int64; cap <= MAX_CAP.
-
-    The kernel computes exactly that.  The plain version pads a with
-    254 and b with 255, as the JAX package does, so it equals it where
-    a[r, :la] holds no 255 and b[r, :lb] no 254; the wave's bases are
-    0-3."""
-    global LAUNCHES
-    _check(a, b, la, lb, cap)
-    dev = a.device
-    if dev.type == "cpu":
-        return lcs_scores_plain(a, b, la, lb, cap)
-    if dev.type != "cuda":
-        raise ValueError(f"no LCS kernel for device {dev}")
-    lib = _load()
-    p = a.shape[0]
-    with torch.cuda.device(dev):
-        out = torch.empty(p, dtype=torch.int64, device=dev)
-        if p == 0:
-            return out
-        err = lib.lcs_launch(a.data_ptr(), b.data_ptr(), la.data_ptr(),
-                             lb.data_ptr(), out.data_ptr(), p, cap,
-                             torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"lcs kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    return out
-
-
 def lcs_scores_plain(a, b, la, lb, cap: int):
-    """LCS length between a[:la] and b[:lb] per batch row — the
-    identity measure for compareSequences' F-matrix check
-    (bubble.c:425-497): matches / max(len) >= 0.9 accepts."""
+    """(P,) int64: the LCS length of a[r, :la[r]] and b[r, :lb[r]] for
+    each row r — the identity measure for compareSequences' F-matrix
+    check (bubble.c:425-497): matches / max(len) >= 0.9 accepts.  a, b:
+    (P, cap) uint8; la, lb: (P,) int64, a length <= 0 an empty string,
+    one above cap the whole row.  Pads a with 254 and b with 255, as the
+    JAX package does, so it is the true LCS where a[r, :la] holds no 255
+    and b[r, :lb] no 254; the wave's bases are 0-3."""
     pos = torch.arange(cap, device=a.device)[None, :]
     ar = torch.where(pos < la[:, None], a, 254)
     br = torch.where(pos < lb[:, None], b, 255)
@@ -154,19 +102,10 @@ def lcs_scores_plain(a, b, la, lb, cap: int):
     return row[:, -1]
 
 
-def _gather_or(x, idx, fill):
-    ok = (idx >= 0) & (idx < x.shape[0])
-    return torch.where(ok, x[idx.clamp(0, x.shape[0] - 1)], fill)
-
-
-def _gather2(x, nodes, fill):
-    return _gather_or(x, nodes.reshape(-1), fill).reshape(nodes.shape)
-
-
 def _path_seq(nodes, length, seq_off, seq_pool, seq_cap: int):
     """Concatenate the appended-base sequences of a node list into a
     fixed (C, seq_cap) buffer; returns (seq, total_len)."""
-    lens = _gather2(length, nodes, 0)                      # (C, m)
+    lens = gather2(length, nodes, 0)                       # (C, m)
     cum = torch.cumsum(lens, 1) - lens                      # exclusive starts
     total = lens.sum(1)
     p = torch.arange(seq_cap, device=nodes.device)[None, :, None]
@@ -174,7 +113,7 @@ def _path_seq(nodes, length, seq_off, seq_pool, seq_cap: int):
     seg = inside.to(torch.uint8).argmax(2)                  # (C, S)
     hit = inside.any(2)
     node_p = torch.gather(nodes, 1, seg)
-    off = _gather2(seq_off, node_p, 0)
+    off = gather2(seq_off, node_p, 0)
     start = torch.gather(cum, 1, seg)
     pool_idx = off + (torch.arange(seq_cap, device=nodes.device)[None, :]
                       - start)

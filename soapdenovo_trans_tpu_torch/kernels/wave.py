@@ -1,8 +1,7 @@
 """The Hopper kernels of the Tour-Bus wave around its identity check: the
 wave's front (``front``: from the arc table to the candidates' chains)
 and its back (``back``: from the verdicts to the counts and the
-``failed`` mask), and the two entries they grew from, ``chains`` and
-``claim_apply``, which the wave no longer calls.
+``failed`` mask).
 
 ``front`` replaces steps 1-4 of the JAX package's jitted ``_wave`` up to
 the identity check (``soapdenovo_trans_tpu/graph/tourbus.py:140-219``:
@@ -11,22 +10,22 @@ backward walks, the first meeting point, the path interiors, their twins
 and the clash test); ``back`` replaces the rest (:221-325 from the
 verdicts on: the counts, the claim arbitration, the positional cover,
 the deletes, the coverage adds, the remap and the rewrite of the arc
-rows) and the pinch's ``failed`` update (:349-356).  ``chains`` is
-steps 3-4 alone (:174-219), ``claim_apply`` steps 5-6 alone (:232-325).
-XLA fuses all of it into the wave program (device code, not Pallas
-kernels).  The arc rows depart from the JAX wave, which remaps every row
-of a minority node onto its cover: here a row that the remap would leave
-unjoined, or that is the bubble's own, is dropped (``claim_apply``).
-The CUDA source is ``csrc/wave.cu`` in this package, compiled for
-``sm_90a`` with ``nvcc`` at first use into ``_build/`` and loaded with
-``ctypes`` (``kernels/_nvcc.py``).
+rows) and the pinch's ``failed`` update (:349-356).  XLA fuses all of it
+into the wave program (device code, not Pallas kernels).  The arc rows
+depart from the JAX wave, which remaps every row of a minority node onto
+its cover: here a row that the remap would leave unjoined, or that is
+the bubble's own, is dropped (``claim_apply_plain``).  The CUDA source is
+``csrc/wave.cu`` in this package, compiled for ``sm_90a`` with ``nvcc``
+at first use into ``_build/`` and loaded with ``ctypes``
+(``kernels/_nvcc.py``).
 
 Each wrapper launches its kernels for CUDA tensors and runs its plain
-PyTorch version (``front_plain``, ``back_plain``, ``chains_plain``,
-``claim_apply_plain``: the wave's own code, moved here) only for CPU
-tensors.  All may be captured into a CUDA graph (the Tour-Bus wave is,
-``graph/tourbus.WaveProgram``): their launches read nothing back, copy no
-host value to the card and set no attribute, and their counters count
+PyTorch version (``front_plain``, ``back_plain``: the wave's own code,
+moved here, whose halves ``candidates_plain``, ``chains_plain`` and
+``claim_apply_plain`` are steps 1-2, 3-4 and 5-6) only for CPU tensors.
+Both may be captured into a CUDA graph (the Tour-Bus wave is,
+``graph/tourbus.WaveProgram``): their launches read nothing back, copy
+no host value to the card and set no attribute, and their counters count
 executions.  The front keeps its majority forest and the back its
 arbitration keys in scratch arrays of each card (``forest_scratch``,
 ``claim_scratch``), allocated outside any capture and empty between
@@ -40,30 +39,24 @@ import os
 
 import torch
 
-from ..graph import unitigs
-from ..graph.edge_clean import _scatter_true
+from ..ops.index import gather2, gather_or, scatter_true
 from . import _nvcc
-from .lcs import _gather2, _gather_or
 
 SOURCE = os.path.join(_nvcc.CSRC, "wave.cu")
 MAX_M = 30  # node slots a path: -M 3's MAXNODELENGTH (its shared memory)
 MAX_CAND = 4096  # candidate rows a front takes (its one-block sort)
 EMPTY = 2**63 - 1  # an unclaimed entry of the claim scratch
+MAX_EDGE_COV = 16000  # an edge's coverage clamp (reference: src/inc/def.h:37)
 _BIG = 2**30
 
 # executions of each entry since the last reset: each launch outside a
 # CUDA graph capture, and each replay of a graph that holds one (the
 # graph's owner adds them, ``graph/tourbus.WaveProgram``); a ``front``
-# execution is its eight kernels, a ``back`` its four, a ``claim_apply``
-# its three
+# execution is its eight kernels, a ``back`` its four
 FRONT_LAUNCHES = 0
 FRONT_CAPTURED = 0  # front launches recorded into CUDA graphs
 BACK_LAUNCHES = 0
 BACK_CAPTURED = 0  # back launches recorded into CUDA graphs
-CHAINS_LAUNCHES = 0
-CHAINS_CAPTURED = 0  # chains launches recorded into CUDA graphs
-CLAIM_APPLY_LAUNCHES = 0
-CLAIM_APPLY_CAPTURED = 0  # claim_apply launches recorded into CUDA graphs
 _LIB = None
 _SCRATCH = {}  # (card index, what) -> that scratch of the card
 
@@ -78,14 +71,6 @@ def _load():
     global _LIB
     if _LIB is None:
         lib = _nvcc.load(SOURCE)
-        lib.chains_launch.restype = ctypes.c_int
-        lib.chains_launch.argtypes = ([ctypes.c_void_p] * 13
-                                      + [ctypes.c_longlong] * 3
-                                      + [ctypes.c_void_p])
-        lib.claim_apply_launch.restype = ctypes.c_int
-        lib.claim_apply_launch.argtypes = ([ctypes.c_void_p] * 26
-                                           + [ctypes.c_longlong] * 4
-                                           + [ctypes.c_void_p])
         lib.front_launch.restype = ctypes.c_int
         lib.front_launch.argtypes = ([ctypes.c_void_p] * 21
                                      + [ctypes.c_longlong] * 5
@@ -128,13 +113,12 @@ def _scratch(dev, e: int, fill: int, what: str):
 
 def claim_scratch(dev, e: int):
     """The claim scratch of card ``dev``: at least e int64 entries, every
-    one EMPTY between calls (each ``claim_apply`` or ``back`` resets what
-    it claimed).  Allocated at first need and replaced by a larger one
-    when a graph outgrows it, never inside a CUDA graph capture
-    (``WaveProgram`` reserves it before its first wave and keeps a
-    reference, so a graph it captured keeps its scratch).  The calls on
-    one card share it, so they must not overlap: the wave runs them on
-    one stream."""
+    one EMPTY between calls (each ``back`` resets what it claimed).
+    Allocated at first need and replaced by a larger one when a graph
+    outgrows it, never inside a CUDA graph capture (``WaveProgram``
+    reserves it before its first wave and keeps a reference, so a graph
+    it captured keeps its scratch).  The calls on one card share it, so
+    they must not overlap: the wave runs them on one stream."""
     return _scratch(dev, e, EMPTY, "claim")
 
 
@@ -163,51 +147,6 @@ def _check(xs, int64, flags, rows, m_max: int) -> None:
                              f"{tuple(x.shape)}")
 
 
-def chains(prev, u, t0, cmask, twin, m_max: int):
-    """Steps 3-4 of the Tour-Bus wave up to the identity check, for C
-    candidate arcs u -> t0 over the majority forest ``prev``: returns
-    (maj, mnr, tw_maj, tw_mnr, s_node, ends, found, n_backtracked).
-
-    prev, twin: (E,) int64; u, t0: (C,) int64 (-1 where not a
-    candidate); cmask: (C,) bool; m_max <= MAX_M.  maj, mnr and their
-    twins are (C, m_max) int64 node lists in path order (fork to join),
-    -1 padded; s_node (C,) the fork, ends (C, 4) (s, t0, twin(s),
-    twin(t0)); found (C,) bool, the candidates with a meeting point that
-    pass the clash test; n_backtracked a 0-dim int64, the candidates with
-    a meeting point.  ``csrc/wave.cu`` states the rules."""
-    global CHAINS_LAUNCHES, CHAINS_CAPTURED
-    c, e = u.shape[0] if u.dim() == 1 else -1, prev.shape[0]
-    _check((prev, u, t0, cmask, twin), (prev, u, t0, twin), (cmask,),
-           (("prev", prev, (e,)), ("u", u, (c,)), ("t0", t0, (c,)),
-            ("cmask", cmask, (c,)), ("twin", twin, (e,))), m_max)
-    dev = u.device
-    if dev.type == "cpu":
-        return chains_plain(prev, u, t0, cmask, twin, m_max)
-    if dev.type != "cuda":
-        raise ValueError(f"no wave kernel for device {dev}")
-    lib = _load()
-    with torch.cuda.device(dev):
-        longs = torch.empty((4, c, m_max), dtype=torch.int64, device=dev)
-        s_node = torch.empty(c, dtype=torch.int64, device=dev)
-        ends = torch.empty((c, 4), dtype=torch.int64, device=dev)
-        found = torch.empty(c, dtype=torch.bool, device=dev)
-        n_back = torch.empty((), dtype=torch.int64, device=dev)
-        err = lib.chains_launch(
-            prev.data_ptr(), u.data_ptr(), t0.data_ptr(), cmask.data_ptr(),
-            twin.data_ptr(), *(x.data_ptr() for x in longs),
-            s_node.data_ptr(), ends.data_ptr(), found.data_ptr(),
-            n_back.data_ptr(), c, e, m_max,
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err:
-            raise RuntimeError(f"chains kernel launch failed: CUDA error "
-                               f"{err}")
-        if torch.cuda.is_current_stream_capturing():
-            CHAINS_CAPTURED += 1
-        else:
-            CHAINS_LAUNCHES += 1
-    return (*longs, s_node, ends, found, n_back)
-
-
 def _take(x, idx):
     """take_along_axis over dim 1 with idx clamped into range."""
     return torch.gather(x, 1, idx.clamp(0, x.shape[1] - 1))
@@ -230,12 +169,23 @@ def _walk(prev, start, steps: int):
     """(C, steps): [start, prev(start), prev(prev(start)), ...]."""
     hist = [start]
     for _ in range(steps - 1):
-        hist.append(_gather_or(prev, hist[-1], -1))
+        hist.append(gather_or(prev, hist[-1], -1))
     return torch.stack(hist, 1)
 
 
 def chains_plain(prev, u, t0, cmask, twin, m_max: int):
-    """``chains`` in plain PyTorch, as the JAX wave computes it."""
+    """Steps 3-4 of the wave in plain PyTorch, as the JAX wave computes
+    them, for C candidate arcs u -> t0 over the majority forest ``prev``:
+    returns (maj, mnr, tw_maj, tw_mnr, s_node, ends, found,
+    n_backtracked).
+
+    prev, twin: (E,) int64; u, t0: (C,) int64 (-1 where not a
+    candidate); cmask: (C,) bool.  maj, mnr and their twins are (C,
+    m_max) int64 node lists in path order (fork to join), -1 padded;
+    s_node (C,) the fork, ends (C, 4) (s, t0, twin(s), twin(t0)); found
+    (C,) bool, the candidates with a meeting point that pass the clash
+    test; n_backtracked a 0-dim int64, the candidates with a meeting
+    point.  ``csrc/wave.cu`` states the rules."""
     dev = u.device
     # 3. backward chains up the forest, and their first meeting point
     chain_a = _walk(prev, t0, m_max + 2)   # t, a1, ..  (fork at index >= 1)
@@ -262,10 +212,10 @@ def chains_plain(prev, u, t0, cmask, twin, m_max: int):
                       _path_nodes(chain_b, j_s, m_max, skip_last=0), -1)
     # reject degenerate/self-touching candidates: the two paths (and
     # their twins) must be disjoint, and neither may touch s/t
-    tw_maj = _gather2(twin, maj, -1)
-    tw_mnr = _gather2(twin, mnr, -1)
-    ends = torch.stack([s_node, t0, _gather_or(twin, s_node, -1),
-                        _gather_or(twin, t0, -1)], 1)
+    tw_maj = gather2(twin, maj, -1)
+    tw_mnr = gather2(twin, mnr, -1)
+    ends = torch.stack([s_node, t0, gather_or(twin, s_node, -1),
+                        gather_or(twin, t0, -1)], 1)
     maj_side = torch.cat([maj, tw_maj, ends], 1)
     mnr_side = torch.cat([mnr, tw_mnr], 1)
     clash = ((mnr_side[:, :, None] == maj_side[:, None, :])
@@ -277,7 +227,8 @@ def chains_plain(prev, u, t0, cmask, twin, m_max: int):
 
 
 def _claim_shapes(xs, c: int, m: int, e: int, a: int):
-    """(name, tensor, shape) of ``claim_apply``'s inputs."""
+    """(name, tensor, shape) of ``back``'s first 17 inputs, those of
+    ``claim_apply_plain``."""
     names = ("maj", "mnr", "tw_maj", "tw_mnr", "ends", "ok", "len_a",
              "len_b", "cvg", "length", "twin", "deleted", "from_ed",
              "to_ed", "mult", "from_node", "to_node")
@@ -286,14 +237,15 @@ def _claim_shapes(xs, c: int, m: int, e: int, a: int):
     return tuple(zip(names, xs, shapes))
 
 
-def claim_apply(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg,
-                length, twin, deleted, from_ed, to_ed, mult, from_node,
-                to_node):
-    """Steps 5-6 of the Tour-Bus wave: returns (cvg2, deleted2, new_f,
-    new_t, new_mult, n_merged).
+def claim_apply_plain(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b,
+                      cvg, length, twin, deleted, from_ed, to_ed, mult,
+                      from_node, to_node):
+    """Steps 5-6 of the Tour-Bus wave in plain PyTorch, the JAX wave's
+    claims, deletes, coverage and positional cover with the port's arc
+    rule: returns (cvg2, deleted2, new_f, new_t, new_mult, n_merged).
 
     maj, mnr, tw_maj, tw_mnr: (C, m) int64 and ends (C, 4) int64, as
-    ``chains`` gives them; ok, len_a, len_b: (C,) as the identity check
+    ``chains_plain`` gives them; ok, len_a, len_b: (C,) as the identity check
     gives them; cvg, length, twin: (E,) int64 and deleted (E,) bool, an
     ``EdgeGraph``'s; from_ed, to_ed, mult: (A,) int64 arc rows; from_node,
     to_node: (E,) int64, the ``EdgeGraph``'s end nodes.  The ok
@@ -309,52 +261,7 @@ def claim_apply(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg,
     from_node[to]); the rest of those rows are remapped, and the
     self-loops the remap makes are dropped.  So every row a wave leaves
     joins as the rows it was given do.  cvg2 is clamped into [0,
-    MAX_EDGE_COV]; n_merged (0-dim int64) counts the winners.  The
-    kernel's arbitration key needs each rank (a sum of at most m
-    coverages) below 2^31, which an EdgeGraph's coverage, clamped to
-    MAX_EDGE_COV by every wave, keeps."""
-    global CLAIM_APPLY_LAUNCHES, CLAIM_APPLY_CAPTURED
-    c, m = maj.shape if maj.dim() == 2 else (-1, -1)
-    e, a = cvg.shape[0], from_ed.shape[0]
-    xs = (maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg, length,
-          twin, deleted, from_ed, to_ed, mult, from_node, to_node)
-    _check(xs, xs[:5] + xs[6:11] + xs[12:], (ok, deleted),
-           _claim_shapes(xs, c, m, e, a), m)
-    dev = maj.device
-    if dev.type == "cpu":
-        return claim_apply_plain(*xs)
-    if dev.type != "cuda":
-        raise ValueError(f"no wave kernel for device {dev}")
-    lib = _load()
-    with torch.cuda.device(dev):
-        scratch = claim_scratch(dev, e)
-        remap = torch.empty(e, dtype=torch.int64, device=dev)
-        owner = torch.empty(e, dtype=torch.int32, device=dev)
-        cvg2 = torch.empty(e, dtype=torch.int64, device=dev)
-        deleted2 = torch.empty(e, dtype=torch.bool, device=dev)
-        arcs = torch.empty((3, a), dtype=torch.int64, device=dev)
-        n_merged = torch.empty((), dtype=torch.int64, device=dev)
-        err = lib.claim_apply_launch(
-            *(x.data_ptr() for x in xs), scratch.data_ptr(),
-            remap.data_ptr(), owner.data_ptr(), cvg2.data_ptr(),
-            deleted2.data_ptr(), *(x.data_ptr() for x in arcs),
-            n_merged.data_ptr(), c, m, e, a,
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err:
-            raise RuntimeError(f"claim/apply kernel launch failed: CUDA "
-                               f"error {err}")
-        if torch.cuda.is_current_stream_capturing():
-            CLAIM_APPLY_CAPTURED += 1
-        else:
-            CLAIM_APPLY_LAUNCHES += 1
-    return (cvg2, deleted2, *arcs, n_merged)
-
-
-def claim_apply_plain(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b,
-                      cvg, length, twin, deleted, from_ed, to_ed, mult,
-                      from_node, to_node):
-    """``claim_apply`` in plain PyTorch: the JAX wave's claims, deletes,
-    coverage and positional cover, and the arc rule of ``claim_apply``."""
+    MAX_EDGE_COV]; n_merged (0-dim int64) counts the winners."""
     e_cap = cvg.shape[0]
     dev = cvg.device
     me = torch.arange(e_cap, device=dev)
@@ -364,7 +271,7 @@ def claim_apply_plain(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b,
     claims = torch.cat([maj, tw_maj, mnr, tw_mnr, ends], 1)
     claims = torch.where(ok[:, None] & (claims >= 0), claims, e_cap)
     rank = torch.where(
-        ok, (_gather2(cvg, mnr, 0) * (mnr >= 0)).sum(1), _BIG)
+        ok, (gather2(cvg, mnr, 0) * (mnr >= 0)).sum(1), _BIG)
     q = claims.shape[1]
     flat_e = claims.reshape(-1)
     flat_rank = rank[:, None].expand(c, q).reshape(-1)
@@ -385,16 +292,16 @@ def claim_apply_plain(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b,
     mnr_w = torch.where(win[:, None], mnr, -1)
     tw_mnr_w = torch.where(win[:, None], tw_mnr, -1)
     del_idx = torch.cat([mnr_w, tw_mnr_w], 1).reshape(-1)
-    deleted2 = deleted | _scatter_true(
+    deleted2 = deleted | scatter_true(
         e_cap, torch.where(del_idx >= 0, del_idx, e_cap))
 
     # positional covering: minority node midpoint, scaled to the
     # majority path, picks the covering majority node
-    lens_b = _gather2(length, mnr, 0)
+    lens_b = gather2(length, mnr, 0)
     mid_b = torch.cumsum(lens_b, 1) - lens_b + lens_b // 2
     scale = torch.where(len_b[:, None] > 0, mid_b * len_a[:, None]
                         // len_b.clamp(min=1)[:, None], 0)
-    lens_a = _gather2(length, maj, 0)
+    lens_a = gather2(length, maj, 0)
     cum_a = torch.cumsum(lens_a, 1) - lens_a
     inside = (scale[:, :, None] >= cum_a[:, None, :]) & \
         (scale[:, :, None] < (cum_a + lens_a)[:, None, :]) & \
@@ -405,15 +312,15 @@ def claim_apply_plain(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b,
                                      inside.to(torch.uint8).argmax(2)),
                         last_maj)  # fallback: last live majority node
     cover = torch.where(mnr_w >= 0, cover, -1)
-    tw_cover = _gather2(twin, cover, -1)
+    tw_cover = gather2(twin, cover, -1)
 
     add_idx = torch.cat([cover, tw_cover], 1).reshape(-1)
-    add_val = torch.cat([_gather2(cvg, mnr_w, 0),
-                         _gather2(cvg, tw_mnr_w, 0)], 1).reshape(-1)
+    add_val = torch.cat([gather2(cvg, mnr_w, 0),
+                         gather2(cvg, tw_mnr_w, 0)], 1).reshape(-1)
     cvg2 = torch.cat([cvg, cvg.new_zeros(1)]).index_add_(
         0, torch.where(add_idx >= 0, add_idx, e_cap),
         torch.where(add_idx >= 0, add_val, 0))[:e_cap].clamp(
-            0, unitigs.MAX_EDGE_COV)
+            0, MAX_EDGE_COV)
 
     # each minority node (and twin) of a winner goes to its cover, -1
     # where it has none, and remembers its winner; each edge a winner
@@ -430,8 +337,8 @@ def claim_apply_plain(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b,
     claimed[torch.where(win[:, None], claims, e_cap).reshape(-1)] = flat_cid
     claimed = claimed[:e_cap]
 
-    new_f = torch.where(from_ed >= 0, _gather_or(remap, from_ed, -1), -1)
-    new_t = torch.where(to_ed >= 0, _gather_or(remap, to_ed, -1), -1)
+    new_f = torch.where(from_ed >= 0, gather_or(remap, from_ed, -1), -1)
+    new_t = torch.where(to_ed >= 0, gather_or(remap, to_ed, -1), -1)
     moved_f = (from_ed >= 0) & (new_f != from_ed)
     moved_t = (to_ed >= 0) & (new_t != to_ed)
     # a row from or to a minority node is dropped where its other end is
@@ -439,12 +346,11 @@ def claim_apply_plain(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b,
     # path, their twins), where the node has no cover, and where the
     # remapped row would not join (to_node[from] != from_node[to]); so are
     # the self-loops the remap makes (genuine loops are kept)
-    inside = (moved_f & (_gather_or(claimed, to_ed, -1)
-                         == _gather_or(owner, from_ed, -2))) | \
-        (moved_t & (_gather_or(claimed, from_ed, -1)
-                    == _gather_or(owner, to_ed, -2)))
-    joined = _gather_or(to_node, new_f, -1) == _gather_or(from_node, new_t,
-                                                          -2)
+    inside = (moved_f & (gather_or(claimed, to_ed, -1)
+                         == gather_or(owner, from_ed, -2))) | \
+        (moved_t & (gather_or(claimed, from_ed, -1)
+                    == gather_or(owner, to_ed, -2)))
+    joined = gather_or(to_node, new_f, -1) == gather_or(from_node, new_t, -2)
     drop = ((new_f == new_t) & (from_ed != to_ed)) | \
         ((moved_f | moved_t) & (inside | ~joined))
     new_f = torch.where(drop, -1, new_f)
@@ -470,7 +376,8 @@ def front(n_edges: int, deleted, cvg, twin, from_ed, to_ed, mult, failed,
     by (coverage of the from-edge, row), and the rest in row order; cmask
     marks its candidates, u and t0 their from- and to-edges (-1 where not
     a candidate).  maj, mnr, tw_maj, tw_mnr (C, m_max), ends (C, 4), found
-    (C,) and n_backtracked are ``chains`` on that forest and those rows.
+    (C,) and n_backtracked are ``chains_plain`` on that forest and those
+    rows.
     The kernel needs coverage within int32 (the JAX package's type) and
     edge ids below 2^31; cand_cap <= MAX_CAND, m_max <= MAX_M."""
     global FRONT_LAUNCHES, FRONT_CAPTURED
@@ -549,17 +456,17 @@ def candidates_plain(n_edges: int, deleted, cvg, from_ed, to_ed, mult,
     me = torch.arange(e_cap, device=dev)
     live_e = (me < n_edges) & ~deleted
     varc = (from_ed >= 0) & (to_ed >= 0) & (mult > 0) & \
-        _gather_or(live_e, from_ed, False) & \
-        _gather_or(live_e, to_ed, False)
+        gather_or(live_e, from_ed, False) & \
+        gather_or(live_e, to_ed, False)
 
     # 1. majority forest
-    cvg_f = _gather_or(cvg, from_ed, 0)
+    cvg_f = gather_or(cvg, from_ed, 0)
     prev = _majority_forest(from_ed, to_ed, varc, cvg_f, e_cap)
 
     # 2. candidates: non-forest arcs not yet examined-and-rejected
     # since the last graph change, weakest minority first; the arc row
     # is the last key, so equal-coverage candidates keep row order
-    tree = _gather_or(prev, to_ed, -1) == from_ed
+    tree = gather_or(prev, to_ed, -1) == from_ed
     cand = varc & ~tree & ~failed
     n_cand = cand.sum()
     order = torch.sort(torch.where(cand, cvg_f, _BIG), stable=True).indices
@@ -590,19 +497,22 @@ def back(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg, length,
     """The Tour-Bus wave's back, from the verdicts on: returns (counts,
     cvg2, deleted2, new_f, new_t, new_mult).
 
-    ``claim_apply``'s 17 inputs, then compared, cmask (C,) bool and
+    ``claim_apply_plain``'s 17 inputs, then compared, cmask (C,) bool and
     cid_arc (C,) int64 as the identity check and ``front`` give them,
     n_cand and n_backtracked (0-dim int64), cand_cap and the pinch's
     failed (A,) bool.  counts is (5,) int64: merged, overflow
     (max(n_cand - cand_cap, 0)), backtracked, compared, and the arc rows
-    the merge dropped (rows with a from-edge that ``claim_apply``'s rule
-    leaves as (-1, -1, 0); 0 when nothing merged).  When no row
-    is ok nothing merges (counts[0] == 0) and the back sets
-    failed[cid_arc[c]] in place for every cmask row; failed is never
-    cleared here.  cvg2, deleted2, new_f, new_t and new_mult are
-    ``claim_apply``'s when counts[0] > 0 and UNDEFINED when it is 0 (the
-    kernels skip them; no caller reads them then: the JAX pinch,
-    ``WaveProgram.apply``); the plain version writes them always."""
+    the merge dropped (rows with a from-edge that the arc rule leaves as
+    (-1, -1, 0); 0 when nothing merged).  When no row is ok nothing
+    merges (counts[0] == 0) and the back sets failed[cid_arc[c]] in place
+    for every cmask row; failed is never cleared here.  cvg2, deleted2,
+    new_f, new_t and new_mult are ``claim_apply_plain``'s when counts[0]
+    > 0 and UNDEFINED when it is 0 (the kernels skip them; no caller
+    reads them then: the JAX pinch, ``WaveProgram.apply``); the plain
+    version writes them always.  The kernels' arbitration key needs each
+    rank (a sum of at most m coverages) below 2^31, which an
+    EdgeGraph's coverage, clamped to MAX_EDGE_COV by every wave,
+    keeps."""
     global BACK_LAUNCHES, BACK_CAPTURED
     c, m = maj.shape if maj.dim() == 2 else (-1, -1)
     e, a = cvg.shape[0], from_ed.shape[0]
@@ -666,7 +576,7 @@ def back_plain(maj, mnr, tw_maj, tw_mnr, ends, ok, len_a, len_b, cvg,
     # edge it claims), so marking all examined candidates failed is
     # exact.
     a_cap = failed.shape[0]
-    failed |= _scatter_true(a_cap, torch.where(
+    failed |= scatter_true(a_cap, torch.where(
         cmask & ~ok & (n_merged == 0), cid_arc, a_cap))
     dropped = ((from_ed >= 0) & (new_f < 0)).sum()
     return (torch.stack([n_merged, overflow, n_backtracked,

@@ -40,6 +40,7 @@ from ..graph import arcs as arcs_mod
 from ..graph import dbg as dbg_mod
 from ..graph import unitigs
 from ..ops import bits, dictionary, kmer
+from ..ops.index import gather_or
 from . import sharded_graph
 from .mesh import Mesh, Sharded
 from .sharded_count import ShardedTable
@@ -571,11 +572,11 @@ def _thread_local(eid_flat, stream, stream1, lengths, patch_keys,
     barrier = in_read & ~(valid & node_live).view(r, p)
     eid = eid.view(r, p)
 
-    pedge = arcs_mod._gather_or(
+    pedge = gather_or(
         patch_edge, dictionary.lookup(patch_keys, stream1.kmers), -1)
     pedge = torch.where(
         (pedge >= 0) & stream1.is_rc,
-        arcs_mod._gather_or(eg_twin, pedge.clamp(min=0), -1), pedge)
+        gather_or(eg_twin, pedge.clamp(min=0), -1), pedge)
     pedge = torch.where(stream1.valid, pedge, -1).view(r, p - 1)
     pair_ok = vertexish[:, :-1] & vertexish[:, 1:] & (pedge >= 0)
     pair_eid = torch.where(pair_ok, pedge, -1)

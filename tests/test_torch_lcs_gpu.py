@@ -1,7 +1,6 @@
-"""The CUDA kernels of the Tour-Bus identity check (``lcs_launch`` and
-``identity_launch`` of csrc/lcs.cu) against their plain PyTorch
-versions, on the card.  Imports no JAX, so it runs where only torch is
-installed:
+"""The CUDA kernel of the Tour-Bus identity check (``identity_launch`` of
+csrc/lcs.cu) against its plain PyTorch version, on the card.  Imports
+no JAX, so it runs where only torch is installed:
 
     python -m pytest --noconftest tests/test_torch_lcs_gpu.py -m gpu
 
@@ -60,42 +59,9 @@ def edge_case(name: str, rng, p: int = 64, cap: int = 64):
 EDGE_CASES = ["la_0", "lb_0", "both_0", "full", "over_cap", "identical",
               "bytes_0_249"]
 
-# the card's cases: the CPU tests' edge cases, the wave's 1,024 x 384,
-# every word of the kernel in use, one pair and 4,096, and caps that are
-# not multiples of 64
-GPU_CASES = ([(name, 64, 64) for name in EDGE_CASES]
-             + [("wave", WAVE_P, WAVE_CAP), ("full", 32, lcs.MAX_CAP),
-                ("wave", 1, WAVE_CAP), ("wave", 4096, WAVE_CAP),
-                ("wave", 256, 48), ("wave", 256, 100),
-                ("full", 256, 100)])
-
-
-def gpu_case(name: str, p: int, cap: int, seed: int):
-    rng = np.random.default_rng(seed)
-    if name == "wave":
-        return (*wave_pairs(rng, p, cap), cap)
-    return edge_case(name, rng, p, cap)
-
-
 def to_device(a, b, la, lb, dev):
     return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
                  for x in (a, b, la.astype(np.int64), lb.astype(np.int64)))
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("i", range(len(GPU_CASES)))
-def test_cuda_kernel_matches_plain(i):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    name, p, cap = GPU_CASES[i]
-    a, b, la, lb = to_device(*gpu_case(name, p, cap, 100 + i)[:4],
-                             torch.device("cuda"))
-    before = lcs.LAUNCHES
-    got = lcs.lcs_scores(a, b, la, lb, cap)
-    want = lcs.lcs_scores_plain(a, b, la, lb, cap)
-    torch.cuda.synchronize()
-    assert lcs.LAUNCHES == before + 1
-    assert torch.equal(got, want), (name, p, cap)
 
 
 class _Edges:

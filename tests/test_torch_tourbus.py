@@ -21,6 +21,7 @@ from soapdenovo_trans_tpu.ops import dictionary as jd
 from soapdenovo_trans_tpu_torch import convert
 from soapdenovo_trans_tpu_torch.graph import bubbles as tbubbles
 from soapdenovo_trans_tpu_torch.graph import tourbus as ttour
+from soapdenovo_trans_tpu_torch.kernels import lcs
 from tests.test_bubbles import (K, _multinode_bubble_reads, build,
                                 snp_variant, unique_kmer_seq)
 from tests.tourbus_rule import rule_on
@@ -53,8 +54,9 @@ def test_lcs_scores_match_jax():
     want = np.asarray(jtour._lcs_scores(
         jnp.asarray(a), jnp.asarray(b), jnp.asarray(la, jnp.int32),
         jnp.asarray(lb, jnp.int32), cap))
-    got = ttour._lcs_scores(torch.from_numpy(a), torch.from_numpy(b),
-                            torch.from_numpy(la), torch.from_numpy(lb), cap)
+    got = lcs.lcs_scores_plain(torch.from_numpy(a), torch.from_numpy(b),
+                               torch.from_numpy(la), torch.from_numpy(lb),
+                               cap)
     np.testing.assert_array_equal(want, got.numpy())
     for i in (0, 1, n - 1):
         assert got[i] == _lcs_reference(a[i, :la[i]], b[i, :lb[i]])

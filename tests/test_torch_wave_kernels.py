@@ -1,6 +1,6 @@
 """The Tour-Bus wave around its identity check (``kernels/wave.py``:
-``front`` and ``back``, and the first entries ``chains`` and
-``claim_apply``), on the CPU.
+``front`` and ``back``, and their halves ``chains_plain`` and
+``claim_apply_plain``), on the CPU.
 
 Held here: the port's ``_wave``, which goes through the front, the
 identity check and the back (their plain versions on the CPU), equals
@@ -150,7 +150,7 @@ def _assert_equal(got, want):
 def test_chains_plain_matches_loop(name, m):
     case = wave_case(name, 48, m, 11)
     xs = chains_inputs(case, "cpu")
-    got = wave.chains(*xs, m)
+    got = wave.chains_plain(*xs, m)
     want = chains_loop(*(case[k] for k in ("prev", "u", "t0", "cmask",
                                            "twin")), m)
     _assert_equal(got, want)
@@ -171,7 +171,7 @@ def test_chains_plain_matches_loop(name, m):
 def test_claim_apply_plain_matches_loop(name, m):
     case = wave_case(name, 48, m, 21)
     xs = claim_inputs(case, m, 5, "cpu")
-    got = wave.claim_apply(*xs)
+    got = wave.claim_apply_plain(*xs)
     want = apply_loop(*(x.numpy() for x in xs), MAX_COV)
     _assert_equal(got, want)
     cvg2, new_f, n_merged = want[0], want[2], want[5]

@@ -1,9 +1,8 @@
 """The CUDA kernels of the Tour-Bus wave around its identity check
-(``front_launch``, ``back_launch``, and the first entries
-``chains_launch`` and ``claim_apply_launch`` of csrc/wave.cu) against
-their plain PyTorch versions, on the card, and a captured replay of a
-wave against the eager wave.  Imports no JAX, so it runs where only
-torch is installed:
+(``front_launch`` and ``back_launch`` of csrc/wave.cu) against their
+plain PyTorch versions, on the card, and a captured replay of a wave
+against the eager wave.  Imports no JAX, so it runs where only torch is
+installed:
 
     python -m pytest --noconftest tests/test_torch_wave_kernels_gpu.py -m gpu
 
@@ -21,8 +20,9 @@ import pytest
 import torch
 
 from soapdenovo_trans_tpu_torch.kernels import wave
+from soapdenovo_trans_tpu_torch.ops import index
 
-MAX_COV = 16000  # unitigs.MAX_EDGE_COV
+MAX_COV = 16000  # wave.MAX_EDGE_COV
 
 # the kinds of candidate row a case is made of (``wave_case``)
 ROW_KINDS = ("bubble", "shared", "ties", "clash", "palindrome", "no_meet",
@@ -169,14 +169,16 @@ def _row(g: _Graph, kind: str, m: int, last):
         return u, t, True, b
     if kind == "ties":
         # chain_a = t, a1, x, y, ..; chain_b = u, b1, y, x, ..: (2, 3) and
-        # (3, 2) both cost 5, and the smaller i must win
+        # (3, 2) both cost 5, and the smaller i must win; the arcs x -> y
+        # and y -> x give the front's forest the same cycle
         x, y = g.node(), g.node()
         g.prev[x], g.prev[y] = y, x
         a1 = g.node(prev=x)
         t = g.node(prev=a1)
         b1 = g.node(prev=y)
         u = g.node(prev=b1)
-        for f, to in ((x, a1), (a1, t), (y, b1), (b1, u), (u, t)):
+        for f, to in ((x, a1), (a1, t), (y, b1), (b1, u), (u, t), (x, y),
+                      (y, x)):
             g.arc(f, to)
         return u, t, True, (u, t, x, [a1], [y, b1, u])
     if kind == "no_meet":
@@ -193,10 +195,10 @@ def _row(g: _Graph, kind: str, m: int, last):
 
 
 def wave_case(name: str, c: int, m: int, seed: int):
-    """A dict of numpy arrays: the inputs of ``chains`` (prev, u, t0,
-    cmask, twin) on a synthetic graph of C candidate rows made of the
+    """A dict of numpy arrays: the inputs of ``chains_plain`` (prev, u,
+    t0, cmask, twin) on a synthetic graph of C candidate rows made of the
     row kinds of ``CASES[name]``, and the graph's length, cvg, deleted
-    and arc rows (from_ed, to_ed, mult) for ``claim_apply``.  ``random``
+    and arc rows (from_ed, to_ed, mult) for ``claim_apply_plain``.  ``random``
     is a random forest (every node's prev a few ids lower) with random
     twins and candidate arcs between nearby nodes.  Named cases shape
     what they name: ``cvg_cap`` coverage at and near 16,000,
@@ -304,7 +306,7 @@ def chains_inputs(case, dev):
 
 
 def claim_inputs(case, m: int, seed: int, dev):
-    """The 17 inputs of ``claim_apply`` on ``dev``: ``chains_plain``'s
+    """The 17 inputs of ``claim_apply_plain`` on ``dev``: ``chains_plain``'s
     outputs on the case's graph, ok = found on ~90% of the found rows,
     len_a and len_b the paths' summed lengths (as the identity check
     gives them), and the graph's arrays.  In the ``no_cover`` case every
@@ -318,7 +320,7 @@ def claim_inputs(case, m: int, seed: int, dev):
         bare = torch.nonzero(ok).flatten()[::3]
         maj[bare], tw_maj[bare] = -1, -1
     length = torch.from_numpy(case["length"])
-    sums = [wave._gather2(length, x, 0).sum(1) for x in (maj, mnr)]
+    sums = [index.gather2(length, x, 0).sum(1) for x in (maj, mnr)]
     xs = (maj, mnr, tw_maj, tw_mnr, ends, ok, *sums,
           *(torch.from_numpy(case[k]) for k in (
               "cvg", "length", "twin", "deleted", "from_ed", "to_ed",
@@ -419,7 +421,7 @@ def back_inputs(case, m: int, cand_cap: int, seed: int, productive: bool,
     ok = found & torch.from_numpy(rng.random(c) < 0.9) & productive
     compared = ok | (found & torch.from_numpy(rng.random(c) < 0.5))
     length = torch.from_numpy(case["length"])
-    sums = [wave._gather2(length, x, 0).sum(1) for x in (maj, mnr)]
+    sums = [index.gather2(length, x, 0).sum(1) for x in (maj, mnr)]
     cvg = torch.from_numpy(case["cvg"]).clamp(0, MAX_COV)
     xs = (maj, mnr, tw_maj, tw_mnr, ends, ok, *sums, cvg, length,
           *(torch.from_numpy(np.asarray(case[k])) for k in (
@@ -454,37 +456,6 @@ def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("i", range(len(GPU_CASES)))
-def test_chains_kernel_matches_plain(i):
-    dev = _card()
-    name, c, m = GPU_CASES[i]
-    xs = chains_inputs(wave_case(name, c, m, 300 + i), dev)
-    before = wave.CHAINS_LAUNCHES
-    got = wave.chains(*xs, m)
-    want = wave.chains_plain(*xs, m)
-    torch.cuda.synchronize()
-    assert wave.CHAINS_LAUNCHES == before + 1
-    assert max_abs_err(got, want) == 0, (name, c, m)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("i", range(len(GPU_CASES)))
-def test_claim_apply_kernel_matches_plain(i):
-    dev = _card()
-    name, c, m = GPU_CASES[i]
-    xs = claim_inputs(wave_case(name, c, m, 400 + i), m, i, dev)
-    before = wave.CLAIM_APPLY_LAUNCHES
-    got = wave.claim_apply(*xs)
-    want = wave.claim_apply_plain(*xs)
-    torch.cuda.synchronize()
-    assert wave.CLAIM_APPLY_LAUNCHES == before + 1
-    assert max_abs_err(got, want) == 0, (name, c, m)
-    # the scratch is empty again
-    scratch = wave.claim_scratch(dev, xs[8].shape[0])
-    assert bool((scratch == wave.EMPTY).all())
 
 
 # the front's and the back's cases: every front case at cand_cap 8 and
@@ -556,11 +527,11 @@ def test_back_kernel_matches_plain(i):
     assert bool((scratch == wave.EMPTY).all())
 
 
-def rule_back_inputs(name: str, m: int, seed: int, dev):
-    """The 24 inputs of ``back`` on one of the rule's cases
-    (``RULE_CASES``): ``claim_inputs`` of a ``wave_case`` of 64 rows,
-    every row examined (cmask, cid_arc its own row), compared = ok."""
-    case = wave_case(name, 64, m, seed)
+def claim_back_inputs(name: str, c: int, m: int, seed: int, dev):
+    """The 24 inputs of ``back`` on a ``wave_case`` of C rows:
+    ``claim_inputs``, every row with a minority path examined (cmask,
+    cid_arc its own row), compared = ok, cand_cap = C, no row failed."""
+    case = wave_case(name, c, m, seed)
     xs = claim_inputs(case, m, seed, "cpu")
     c = xs[0].shape[0]
     ok = xs[5]
@@ -579,7 +550,7 @@ def test_back_kernel_rule_cases(name, m):
     drops rows: the counts (the dropped rows among them), the rows, and
     every row left joins."""
     dev = _card()
-    xs = rule_back_inputs(name, m, 500 + m, dev)
+    xs = claim_back_inputs(name, 64, m, 500 + m, dev)
     failed, failed_plain = xs[-1], xs[-1].clone()
     got = wave.back(*xs[:-1], failed)
     want = wave.back_plain(*xs[:-1], failed_plain)
@@ -587,6 +558,60 @@ def test_back_kernel_rule_cases(name, m):
     assert int(want[0][0]) > 0 and int(want[0][4]) > 0
     assert back_err(got, want, failed, failed_plain) == 0, (name, m)
     assert joins(got[3].cpu(), got[4].cpu(), xs[15].cpu(), xs[16].cpu())
+    scratch = wave.claim_scratch(dev, xs[8].shape[0])
+    assert bool((scratch == wave.EMPTY).all())
+
+
+def case_front_inputs(case, dev):
+    """``front``'s inputs on the arc table a ``wave_case``'s graph built:
+    every edge in use, no row failed."""
+    return front_inputs({**case, "n_edges": len(case["cvg"]),
+                         "failed": np.zeros(len(case["from_ed"]), bool)},
+                        dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("i", range(len(GPU_CASES)))
+def test_front_kernel_on_wave_cases(i):
+    """The front's kernels against ``front_plain`` on the arc table of
+    every named case and the random ones: the forest comes from the
+    case's arcs, so chains_kernel walks what the main path gives it.
+    Paths are found in every case but ``random``, whose hand-set forest
+    has no arcs behind it (the front's walks on its random arcs meet in
+    a few rows, each refused by the clash test or an empty path)."""
+    dev = _card()
+    name, c, m = GPU_CASES[i]
+    xs = case_front_inputs(wave_case(name, c, m, 300 + i), dev)
+    before = wave.FRONT_LAUNCHES
+    got = wave.front(*xs, m, 1024)
+    want = wave.front_plain(*xs, m, 1024)
+    torch.cuda.synchronize()
+    assert wave.FRONT_LAUNCHES == before + 1
+    assert max_abs_err(got, want) == 0, (name, c, m)
+    assert int(want[10]) > 0  # walks met
+    assert bool(want[9].any()) == (name != "random")
+    scratch = wave.forest_scratch(dev, xs[2].shape[0])
+    assert bool((scratch == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("i", range(len(GPU_CASES)))
+def test_back_kernel_on_wave_cases(i):
+    """The back's kernels against ``back_plain`` on every named case and
+    the random ones, with ok rows (its productive branch; ``not_found``
+    has none): the counts and failed, and where it merged every other
+    output; the claim scratch empty after."""
+    dev = _card()
+    name, c, m = GPU_CASES[i]
+    xs = claim_back_inputs(name, c, m, 400 + i, dev)
+    failed, failed_plain = xs[-1], xs[-1].clone()
+    before = wave.BACK_LAUNCHES
+    got = wave.back(*xs[:-1], failed)
+    want = wave.back_plain(*xs[:-1], failed_plain)
+    torch.cuda.synchronize()
+    assert wave.BACK_LAUNCHES == before + 1
+    assert back_err(got, want, failed, failed_plain) == 0, (name, c, m)
+    assert (int(want[0][0]) > 0) == (name != "not_found")
     scratch = wave.claim_scratch(dev, xs[8].shape[0])
     assert bool((scratch == wave.EMPTY).all())
 

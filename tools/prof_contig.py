@@ -22,13 +22,11 @@ front's and the back's kernels together, and the twelve kernels with the
 most device time, those run by the replays included.  Then the hand
 kernels of the wave alone, 20 calls each under the profiler: the
 identity kernel at a real wave's shape (12 of 1,024 rows compared, paths
-of 24 bases) and at 1,024 x 384 with full paths, the standalone LCS
-kernel at 1,024 x 384 with la = lb = 384, chains and claim_apply on the
-``mixed`` case of ``tests/test_torch_wave_kernels_gpu.py`` at C = 1,024,
-m = 3, and the front and the back (with ok rows and without) on its
-``mixed`` front case at 1,024 candidates, m = 3; their device time a
-call, which CUDA events around one call cannot separate from the
-wrapper's host time.  The last line is a JSON object of the
+of 24 bases) and at 1,024 x 384 with full paths, and the front and the
+back (with ok rows and without) on the ``mixed`` front case of
+``tests/test_torch_wave_kernels_gpu.py`` at 1,024 candidates, m = 3;
+their device time a call, which CUDA events around one call cannot
+separate from the wrapper's host time.  The last line is a JSON object of the
 same.  With ``--unprofiled`` only the first ``contig -g`` runs (a size whose
 profile would not fit, such as 1,000,000 pairs): its seconds, waves,
 seconds a wave and peak bytes.  Imports nothing of JAX.
@@ -74,22 +72,6 @@ def timed_contig(prefix: str):
     return res, time.time() - t0
 
 
-def lcs_alone_us(reps: int = 20) -> float:
-    """Device microseconds a launch of the LCS kernel on 1,024 pairs of
-    384 bases (a wave's full width), 10-15% substitutions."""
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    a = torch.randint(0, 4, (1024, 384), generator=gen, device="cuda",
-                      dtype=torch.uint8)
-    noise = torch.randint(0, 4, a.shape, generator=gen, device="cuda",
-                          dtype=torch.uint8)
-    b = torch.where(torch.rand(a.shape, generator=gen, device="cuda")
-                    < 0.12, noise, a)
-    la = torch.full((1024,), 384, dtype=torch.int64, device="cuda")
-    return device_us(lambda: lcs.lcs_scores(a, b, la, la, 384),
-                     "lcs_kernel", reps)
-
-
 def identity_alone_us(name: str, reps: int = 20) -> float:
     """Device microseconds a launch of the identity kernel on 1,024 rows
     of the ``name`` case of tests/test_torch_lcs_gpu.py (m = 3, seq_cap =
@@ -97,22 +79,6 @@ def identity_alone_us(name: str, reps: int = 20) -> float:
     xs = identity_to_device(identity_case(name, 1024, 3, 384, 2, 7), "cuda")
     return device_us(lambda: lcs.identity_check(*xs, 2, 384),
                      "identity_kernel", reps)
-
-
-def wave_alone_us(reps: int = 20) -> dict:
-    """Device microseconds a call of chains (its kernel; the memset
-    before it is not a kernel) and of claim_apply (its three kernels) on
-    the ``mixed`` case of tests/test_torch_wave_kernels_gpu.py at C =
-    1,024, m = 3."""
-    case = wave_cases.wave_case("mixed", 1024, 3, 7)
-    chains_in = wave_cases.chains_inputs(case, "cuda")
-    claim_in = wave_cases.claim_inputs(case, 3, 7, "cuda")
-    return {"chains_alone_1024x3_us": device_us(
-                lambda: wave.chains(*chains_in, 3), ("chains_kernel",), reps),
-            "claim_apply_alone_1024x3_us": device_us(
-                lambda: wave.claim_apply(*claim_in),
-                ("claim_kernel", "apply_kernel", "arcs_kernel"), reps),
-            **front_back_alone_us(reps)}
 
 
 def front_back_alone_us(reps: int = 20) -> dict:
@@ -159,7 +125,6 @@ def executions() -> dict:
 
 
 def reset_counts() -> None:
-    lcs.LAUNCHES = 0
     for module, counter, _ in tourbus._KERNELS:
         setattr(module, counter, 0)
     tourbus.CAPTURES = tourbus.REPLAYS = 0
@@ -229,12 +194,10 @@ def main() -> int:
             prof, "cudaGraphLaunch") / max(waves, 1),
         "unprofiled": plain,
         "wave_kernels": per_launch, **per_wave,
-        "lcs_kernel_launches": lcs.LAUNCHES,
         **summary,
         "identity_alone_wave_1024x384_us": identity_alone_us("wave"),
         "identity_alone_1024x384_full_us": identity_alone_us("full"),
-        "lcs_alone_1024x384_full_us": lcs_alone_us(),
-        **wave_alone_us()}
+        **front_back_alone_us()}
     profsum.print_top("prof_contig", summary)
     print(json.dumps(numbers))
     return 0
