@@ -38,13 +38,30 @@ file is the columns' row-major boolean compaction.  ``.edge.gz`` places
 its headers and its bases (a 4-byte lookup of the pool) by index
 arithmetic, every other byte a newline, in blocks of records of about
 a million bases, each block's text written on into one level-9 gzip
-member (span ``pregraph.write.edge.deflate``); ``.preArc`` groups the
-arc rows by a stable sort on the from-edge's file id.
+member; ``.preArc`` groups the arc rows by a stable sort on the
+from-edge's file id.
+
+That member is deflated as pigz does it (``_GzipMember``): the text is
+cut at fixed offsets into chunks of ``_CHUNK`` bytes, each chunk raw
+deflate at level 9 primed with the ``_WINDOW`` bytes of text before it,
+ended by a sync flush (the last by the final block), on a pool of one
+thread a host core (zlib frees the GIL while it compresses) while the
+main thread builds the next block's text.  The chunks' streams, written
+in order between a fixed 10-byte header (no name, MTIME 0, XFL 2: the
+slowest level) and the trailer (the text's crc32 and length), are one
+deflate stream: the file's bytes depend on the text alone, not on the
+host's cores or the clock.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import gzip
+import os
+import struct
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import List
 
 import numpy as np
@@ -169,6 +186,96 @@ def _oriented_lanes(keys: torch.Tensor, nodes: torch.Tensor,
     return torch.where(rc, bits.reverse_complement(km, k), km).cpu().numpy()
 
 
+# -- .edge.gz: one gzip member, deflated in chunks in parallel ------------
+
+_CHUNK = 1 << 18   # bytes of text a deflate chunk
+_WINDOW = 1 << 15  # deflate's window: the text a chunk is primed with
+_IN_FLIGHT = 2     # chunks queued or deflating, a worker
+_GZIP_HEADER = bytes([0x1F, 0x8B, 8, 0, 0, 0, 0, 0, 2, 255])
+
+
+def _deflate_workers() -> int:
+    """The host cores this process may run on."""
+    return len(os.sched_getaffinity(0))
+
+
+def _deflate(primer, chunk, last: bool) -> bytes:
+    """One chunk as raw level-9 deflate, primed with the text before it
+    (none before the first), ended byte-aligned by a sync flush, or by
+    the final block if it is the last."""
+    z = zlib.compressobj(9, zlib.DEFLATED, -15, 9,
+                         **({"zdict": primer} if len(primer) else {}))
+    return z.compress(chunk) + z.flush(
+        zlib.Z_FINISH if last else zlib.Z_SYNC_FLUSH)
+
+
+class _GzipMember:
+    """One level-9 gzip member written to ``fh`` as pigz writes one: the
+    text given to ``write`` is cut at fixed offsets into chunks of
+    ``_CHUNK`` bytes, a chunk cut only once text follows it, so the last
+    is known; ``close`` deflates the last and writes the trailer.  From
+    the second chunk on the chunks deflate on a pool of up to one thread
+    a core, at most ``_IN_FLIGHT`` a worker queued or running, and the
+    main thread writes their streams in order; one chunk, or one core,
+    deflates inline.  The crc runs on over each chunk as it is cut.  The
+    pool lives inside the ``with`` of its user.  Counters
+    ``pregraph.write.edge.{chunks,workers,text_bytes,gz_bytes}``."""
+
+    def __init__(self, fh):
+        self._fh, self._cores = fh, _deflate_workers()
+        self._stack = contextlib.ExitStack()
+        self._pool, self._queue = None, collections.deque()
+        self._buf, self._at = np.zeros(0, np.uint8), 0  # window + uncut
+        self._crc = self._text = self._chunks = 0
+        self._gz = self._emit(_GZIP_HEADER)
+
+    def __enter__(self) -> "_GzipMember":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._stack.close()
+        return False
+
+    def _emit(self, data: bytes) -> int:
+        self._fh.write(data)
+        return len(data)
+
+    def _cut(self, end: int, last: bool) -> None:
+        at = self._at
+        primer, chunk = self._buf[max(at - _WINDOW, 0):at], self._buf[at:end]
+        self._crc = zlib.crc32(chunk, self._crc)
+        self._text += len(chunk)
+        self._chunks += 1
+        self._at = end
+        if self._pool is None and self._cores > 1 and not last:
+            self._pool = self._stack.enter_context(
+                ThreadPoolExecutor(self._cores))
+        if self._pool is None:
+            self._gz += self._emit(_deflate(primer, chunk, last))
+            return
+        self._queue.append(self._pool.submit(_deflate, primer, chunk, last))
+        while len(self._queue) > _IN_FLIGHT * self._cores or (
+                last and self._queue):
+            self._gz += self._emit(self._queue.popleft().result())
+
+    def write(self, text: np.ndarray) -> None:
+        self._buf = np.concatenate([self._buf, text])
+        while self._buf.shape[0] - self._at > _CHUNK:
+            self._cut(self._at + _CHUNK, False)
+        keep = max(self._at - _WINDOW, 0)
+        self._buf, self._at = self._buf[keep:], self._at - keep
+
+    def close(self) -> None:
+        self._cut(self._buf.shape[0], True)
+        self._gz += self._emit(struct.pack(
+            "<II", self._crc, self._text & 0xFFFFFFFF))
+        workers = min(self._cores, self._chunks) if self._pool else 1
+        for name, value in (("chunks", self._chunks), ("workers", workers),
+                            ("text_bytes", self._text),
+                            ("gz_bytes", self._gz)):
+            profiling.counter("pregraph.write.edge." + name, value)
+
+
 def _edge_text(head_cols: list, ln: np.ndarray, seq_off: np.ndarray,
                pool: np.ndarray) -> np.ndarray:
     """The .edge.gz text of some records: each its header, then its
@@ -238,10 +345,14 @@ def write_pregraph_files(prefix: str, table, edges, arcs, k: int) -> int:
     uint8 buffer by whole-array operations (fields as byte columns, one
     boolean compaction; bases by a lookup, newlines by index arithmetic)
     and written in one call; .edge.gz is one gzip member at level 9, its
-    text built and written a block of records at a time.  Spans: the
-    device-to-host copies ``pregraph.write.host``, then
-    ``pregraph.write.vertex``, ``.edge`` (its gzip writes of the blocks'
-    text ``pregraph.write.edge.deflate``) and ``.arc``, one a file."""
+    text built a block of records at a time and deflated in chunks on
+    every host core while the next block is built (``_GzipMember``; the
+    same bytes whatever the core count).  Spans: the device-to-host
+    copies ``pregraph.write.host``, then ``pregraph.write.vertex``,
+    ``.edge`` and ``.arc``, one a file; inside ``.edge``,
+    ``pregraph.write.edge.deflate`` times the main thread's part of the
+    deflate: cutting chunks and the crc, inline deflates, waits on the
+    pool's results and the file writes."""
     with profiling.span("pregraph.write.host"):
         keys = _host(table.keys)
         n_e = edges.n_edges
@@ -278,7 +389,7 @@ def write_pregraph_files(prefix: str, table, edges, arcs, k: int) -> int:
         cuts = np.unique(np.concatenate([[0], np.searchsorted(
             upto, np.arange(_BLOCK_BASES, upto[-1] if n_r else 0,
                             _BLOCK_BASES), side="right"), [n_r]]))
-        with gzip.open(prefix + ".edge.gz", "wb", compresslevel=9) as fh:
+        with open(prefix + ".edge.gz", "wb") as fh, _GzipMember(fh) as gz:
             for lo, hi in zip(cuts[:-1], cuts[1:]):
                 rep, n = order[lo:hi], hi - lo
                 text = _edge_text(
@@ -289,7 +400,9 @@ def write_pregraph_files(prefix: str, table, edges, arcs, k: int) -> int:
                     + [_lit(b", ", n)] + _dec(twin[rep] != rep)
                     + [_lit(b"\n", n)], ln[lo:hi], seq_off[rep], pool)
                 with profiling.span("pregraph.write.edge.deflate"):
-                    fh.write(text)
+                    gz.write(text)
+            with profiling.span("pregraph.write.edge.deflate"):
+                gz.close()
 
     # arcs: one line a from-edge, ascending; its to-edges in row order
     with profiling.span("pregraph.write.arc"):

@@ -2,9 +2,10 @@
 against the JAX package's per-record writer, which reads the same CPU
 tensors: ``.vertex`` and ``.preArc`` byte for byte, ``.edge.gz`` after
 gunzip, at every hex width (one, two and four 64-bit words) on
-synthetic graphs with the edge cases the format has; and
-``edge_file_ids`` against the JAX package's sequential loop on twin
-arrays that are not an involution."""
+synthetic graphs with the edge cases the format has; ``.edge.gz`` as one
+level-9 gzip member whose bytes do not depend on the deflate's worker
+count; and ``edge_file_ids`` against the JAX package's sequential loop
+on twin arrays that are not an involution."""
 
 import gzip
 import zlib
@@ -49,11 +50,11 @@ def _twins(n_pairs):
     return np.asarray(twin, np.int64)
 
 
-def _graph(k, seed):
+def _graph(k, seed, n_pairs=30):
     rng = np.random.default_rng(seed)
     n_v = 40
     keys = _kmers(rng, n_v, k)
-    twin = _twins(30)
+    twin = _twins(n_pairs)
     n_e = twin.shape[0]
     length = rng.integers(0, 350, n_e)
     length[1:7] = [0, 1, 99, 100, 101, 200]
@@ -137,6 +138,55 @@ def test_writer_in_small_blocks(k, tmp_path, monkeypatch):
         member = zlib.decompressobj(31)
         member.decompress(fh.read())
     assert member.eof and member.unused_data == b""
+
+
+def _member(raw):
+    """The text of a gzip file that must be one member, written at the
+    slowest level (XFL 2)."""
+    member = zlib.decompressobj(31)
+    text = member.decompress(raw)
+    assert member.eof and member.unused_data == b""
+    assert raw[8] == 2
+    return text
+
+
+@pytest.mark.parametrize("workers", [1, 3])
+@pytest.mark.parametrize("k", [23, 127])
+def test_edge_file_deflated_in_parallel_chunks(k, workers, tmp_path,
+                                               monkeypatch):
+    """Chunks of 16 KiB deflated on ``workers`` threads (at most one
+    queued a worker), blocks of records of 20,000 bases: chunks span
+    blocks and cut records.  The text is the plain writer's, the file
+    one member at level 9, its bytes those of one worker, and its size
+    at most 0.5% over gzip's serial level 9."""
+    monkeypatch.setattr(gf, "_CHUNK", 1 << 14)
+    monkeypatch.setattr(gf, "_BLOCK_BASES", 20_000)
+    monkeypatch.setattr(gf, "_IN_FLIGHT", 1)
+    table, edges, aset = _graph(k, seed=k + 2, n_pairs=300)
+    jgf.write_pregraph_files(str(tmp_path / "jax"), table, edges, aset, k)
+    raw = {}
+    for w in (1, workers):
+        monkeypatch.setattr(gf, "_deflate_workers", lambda w=w: w)
+        got = str(tmp_path / f"port{w}")
+        gf.write_pregraph_files(got, table, edges, aset, k)
+        with open(got + ".edge.gz", "rb") as fh:
+            raw[w] = fh.read()
+    text = _member(raw[workers])
+    assert text == _read(str(tmp_path / "jax.edge.gz"))
+    assert len(text) > 4 * gf._CHUNK  # several chunks
+    assert raw[workers] == raw[1]
+    assert len(raw[workers]) <= 1.005 * len(gzip.compress(text, 9))
+
+
+@pytest.mark.parametrize("workers", [1, 3])
+def test_no_edges_write_one_empty_member(workers, tmp_path, monkeypatch):
+    monkeypatch.setattr(gf, "_deflate_workers", lambda: workers)
+    table, edges, aset = _graph(23, seed=2)
+    got = str(tmp_path / "port")
+    gf.write_pregraph_files(got, table, edges._replace(n_edges=0),
+                            aset._replace(n=0), 23)
+    with open(got + ".edge.gz", "rb") as fh:
+        assert _member(fh.read()) == b""
 
 
 def test_writer_on_an_empty_graph(tmp_path):

@@ -3,9 +3,11 @@ on the CPU under ``torch.profiler`` puts every span in the exported trace
 as ``soap/<name>``, nested as the program nests them and as long as the
 record says; the stages' ``phase_seconds`` and ``stage_seconds`` are the
 span totals; with no profiler no ``record_function`` is entered; the
-read passes' waits, the decoder's seconds and the merge rows are counted
-where the work happens; counters added from many threads lose nothing."""
+read passes' waits, the decoder's seconds, the merge rows and the
+``.edge.gz`` deflate's chunks, workers and bytes are counted where the
+work happens; counters added from many threads lose nothing."""
 
+import gzip
 import json
 import sys
 import threading
@@ -15,7 +17,7 @@ import torch
 
 import perf_e2e
 from soapdenovo_trans_tpu_torch import cli
-from soapdenovo_trans_tpu_torch.io import fastx
+from soapdenovo_trans_tpu_torch.io import fastx, graph_files
 from soapdenovo_trans_tpu_torch.kernels import merge_path
 from soapdenovo_trans_tpu_torch.stages import pregraph
 from soapdenovo_trans_tpu_torch.utils import profiling
@@ -180,6 +182,24 @@ def test_read_waits_decode_seconds_and_merge_rows(traced):
     assert res.counters["reads.decode_s"] > 0
     assert seen["merge_rows"] > 0
     assert res.counters["merge_path.rows"] == seen["merge_rows"]
+
+
+def test_edge_deflate_counters(reads_cfg, tmp_path, monkeypatch):
+    """A pregraph run records the .edge.gz deflate's chunks, workers and
+    bytes: the text's (the file gunzipped) and the file's."""
+    monkeypatch.setattr(graph_files, "_CHUNK", 1 << 12)
+    args = cli.build_parser().parse_args(
+        ["pregraph", "-s", reads_cfg, "-K", "23", "-o", str(tmp_path / "p")])
+    rec = profiling.StageTimings()
+    with profiling.active(rec):
+        cli.run_pregraph_cmd(args, torch.device("cpu"))
+    got = {name: rec.counters["pregraph.write.edge." + name]
+           for name in ("chunks", "workers", "text_bytes", "gz_bytes")}
+    path = tmp_path / "p.edge.gz"
+    assert got["text_bytes"] == len(gzip.decompress(path.read_bytes()))
+    assert got["gz_bytes"] == path.stat().st_size < got["text_bytes"]
+    assert 1 <= got["workers"] <= got["chunks"]
+    assert got["chunks"] == -(-got["text_bytes"] // graph_files._CHUNK) > 1
 
 
 def test_spans_and_counters_go_to_the_active_recorder_only():
