@@ -266,8 +266,12 @@ def pinch(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet,
     Every productive wave deletes at least one edge; between graph
     changes each unproductive wave retires a fresh CAND_CAP-chunk of
     the remaining candidates (the ``failed`` mask).  The waves run as
-    one ``WaveProgram``, one blocking read of five counts a wave; each
-    productive wave's ``apply`` is the span ``contig.tourbus.apply``.
+    one ``WaveProgram``, one blocking read of five counts a wave.  Inside
+    the span ``contig.tourbus``, each wave's enqueue (the eager first
+    wave, the capture or a replay) is the span ``contig.tourbus.launch``,
+    its count read ``contig.tourbus.read`` (the host's wait on the
+    wave's kernels), and each productive wave's ``apply`` is
+    ``contig.tourbus.apply``.
     The run's counters (``utils/profiling``) get ``tourbus.<key>`` for
     the waves, productive, merged, compared and arcs_dropped of stats,
     and the waves' shapes: ``tourbus.arc_rows``, the arc buffers' rows
@@ -286,7 +290,10 @@ def pinch(eg: unitigs.EdgeGraph, aset: arcs_mod.ArcSet,
             prog = WaveProgram(eg, aset, m_max, diff)
             while True:
                 stats["waves"] += 1
-                n, over, back, cmp_, dropped = prog.launch().tolist()
+                with profiling.span("contig.tourbus.launch"):
+                    counts = prog.launch()
+                with profiling.span("contig.tourbus.read"):
+                    n, over, back, cmp_, dropped = counts.tolist()
                 stats["backtracked"] += back
                 stats["compared"] += cmp_
                 if n == 0:

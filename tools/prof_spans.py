@@ -12,7 +12,9 @@ activities, ``cli.main(["all", ...])`` inside a window span).  From each
 traced assembly's exported trace: the device's busy time (the union of
 every kernel, copy and memset interval) and its idle gaps inside the
 window; the ten longest gaps, each named by the innermost ``soap/`` span
-open at its middle; the idle seconds by innermost span; and the share
+open at its middle; the idle seconds by innermost span; the Tour-Bus wave
+kernels' device seconds and launches by name (the names that
+``port_bench/metrics/wave.roofline.py`` reads; none at ``-M 0``); and the share
 of the idle time that lies inside a span below the stage level (a span
 whose name has a dot, such as ``pregraph.write`` or ``reads.wait``).
 From each assembly: the stage seconds, spans and counters the port
@@ -49,12 +51,13 @@ from soapdenovo_trans_tpu_torch.utils import profiling  # noqa: E402
 WINDOW = "prof_spans/assembly"
 
 
-def read_trace(path: str):
-    """(device intervals, soap spans as (name, start, end), window) of an
-    exported trace, in microseconds."""
+def read_trace(path: str, wave_kernels=frozenset()):
+    """(device intervals, soap spans as (name, start, end), window, the
+    [device seconds, launches] of each of ``wave_kernels`` by name) of an
+    exported trace, in microseconds but for the kernels' seconds."""
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
-    device, spans, window = [], [], None
+    device, spans, window, wave = [], [], None, {}
     for ev in events:
         if ev.get("ph") != "X":
             continue
@@ -62,11 +65,16 @@ def read_trace(path: str):
         e = s + float(ev.get("dur", 0.0))
         if ev.get("cat") in tr.DEVICE_CATS:
             device.append((s, e))
+            kernel = tr.kernel_name(name)
+            if kernel in wave_kernels:
+                tot = wave.setdefault(kernel, [0.0, 0])
+                tot[0] += (e - s) / 1e6
+                tot[1] += 1
         elif name.startswith(profiling.PREFIX):
             spans.append((name[len(profiling.PREFIX):], s, e))
         elif name == WINDOW:
             window = (s, e)
-    return device, spans, window
+    return device, spans, window, wave
 
 
 def overlap(a, b) -> float:
@@ -174,6 +182,7 @@ def one_cell(name: str, args) -> dict:
         asm = bench.Assembler(cli, config, cfg, workdir, sync)
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
                                          else [])
+        wave_kernels = bench.load_metric("wave.roofline").KERNELS
         rounds = []
         for _ in range(args.rounds):
             t0 = time.time()
@@ -190,7 +199,7 @@ def one_cell(name: str, args) -> dict:
             traced_s = time.time() - t0
             path = os.path.join(workdir, "trace.json")
             prof.export_chrome_trace(path)
-            device_iv, spans, window = read_trace(path)
+            device_iv, spans, window, wave = read_trace(path, wave_kernels)
             os.remove(path)
             rounds.append({
                 "untraced": plain,
@@ -198,6 +207,9 @@ def one_cell(name: str, args) -> dict:
                            "stage_s": dict(res.stage_seconds),
                            "spans": res.spans, "counters": res.counters,
                            "trace_spans": len(spans),
+                           "wave_kernels": wave,
+                           "wave_kernels_s": sum(v[0] for v in
+                                                 wave.values()),
                            **idle_report(device_iv, spans, window)},
                 "spans_per_assembly": sum(c for _, c in res.spans.values())})
             res = prof = None
