@@ -10,17 +10,25 @@ files' after decompression).
 
 ``_write_columns`` is numpy-only (the JAX package writes through pandas
 when it can import it; the GPU machine has no pandas) and gives the
-bytes that pandas' ``to_csv`` gives for integer and string columns.
+bytes that pandas' ``to_csv`` gives for integer and string columns.  It
+makes no Python string per field: a chunk of ``_ROWS_PER_CHUNK`` rows is
+built as byte columns with the pregraph writer's helpers
+(``graph_files._dec``, ``_lit``, ``_records``), the chunks on a pool of
+one thread a host core (numpy frees the GIL over whole arrays), their
+text written in chunk order.
 """
 
 from __future__ import annotations
 
 import gzip
+from concurrent.futures import ThreadPoolExecutor
 from typing import List
 
 import numpy as np
 
 from ..ops import bits
+from ..utils import profiling
+from .graph_files import _deflate_workers, _dec, _lit, _records
 
 
 def write_kmer_freq(path: str, histogram: np.ndarray) -> None:
@@ -127,21 +135,61 @@ def write_contig_index(path: str, contigs, k: int, perm) -> None:
         fh.write("".join(out))
 
 
-_ROWS_PER_WRITE = 1 << 20
+_ROWS_PER_CHUNK = 1 << 16
+
+
+def _field(col) -> list:
+    """The byte columns of one field: an integer column in decimal
+    (``str(int)``), any other as ``str`` of each value (ASCII), read
+    from the fixed-width code points of its ``numpy.str_`` view with
+    the padding dropped."""
+    col = np.asarray(col)
+    if col.dtype.kind in "iu" and np.can_cast(col.dtype, np.int64):
+        return _dec(col)
+    codes = np.ascontiguousarray(col.astype(str)).view(np.uint32)
+    codes = codes.reshape(col.shape[0], -1)
+    return [(codes.astype(np.uint8), codes != 0)]
+
+
+def _chunk_text(cols, lo: int, hi: int) -> np.ndarray:
+    """Rows ``lo:hi`` as text: fields tab-separated, each row ended by a
+    newline."""
+    n = hi - lo
+    parts = []
+    for i, col in enumerate(cols):
+        if i:
+            parts.append(_lit(b"\t", n))
+        parts += _field(col[lo:hi])
+    parts.append(_lit(b"\n", n))
+    return _records(parts)[0]
 
 
 def _write_columns(path: str, header, cols, opener=open) -> None:
     """Tab-separated rows of equal-length 1-D columns behind an optional
-    header line: each column is turned to text by numpy, the rows joined
-    in C (about 1.5 s for 1.2M four-column rows on one CPU core)."""
-    with opener(path, "wt") as fh:
+    header line, written as bytes through ``opener``.  The rows are cut
+    into chunks of ``_ROWS_PER_CHUNK``, each built by ``_chunk_text``;
+    more than one chunk are built on a pool of up to one thread a host
+    core and written in chunk order, one chunk or less on the calling
+    thread.  Counters ``map.write.{rows,chunks}`` (added) and
+    ``map.write.workers`` (the most threads one table used)."""
+    n = len(cols[0])
+    bounds = [(lo, min(lo + _ROWS_PER_CHUNK, n))
+              for lo in range(0, n, _ROWS_PER_CHUNK)]
+    workers = max(min(_deflate_workers(), len(bounds)), 1)
+    with opener(path, "wb") as fh:
         if header is not None:
-            fh.write(header + "\n")
-        n = len(cols[0])
-        for lo in range(0, n, _ROWS_PER_WRITE):
-            text = [np.asarray(c[lo:lo + _ROWS_PER_WRITE]).astype(str).tolist()
-                    for c in cols]
-            fh.write("\n".join(map("\t".join, zip(*text))) + "\n")
+            fh.write((header + "\n").encode())
+        if workers == 1:
+            for lo, hi in bounds:
+                fh.write(_chunk_text(cols, lo, hi))
+        else:
+            with ThreadPoolExecutor(workers) as pool:
+                for text in pool.map(lambda b: _chunk_text(cols, *b),
+                                     bounds):
+                    fh.write(text)
+    profiling.counter("map.write.rows", n)
+    profiling.counter("map.write.chunks", len(bounds))
+    profiling.counter_max("map.write.workers", workers)
 
 
 def write_placement_table(path: str, readno, ctg, pos, orien) -> None:

@@ -58,7 +58,8 @@ class Span:
 
 class StageTimings:
     """The per-run record: span seconds and calls by name, counter
-    totals by name, and the stages' seconds in first-use order (a name
+    totals by name (or a counter's largest value, through
+    ``counter_max``), and the stages' seconds in first-use order (a name
     timed twice accumulates).  Counters may be added from any thread."""
 
     def __init__(self):
@@ -77,6 +78,10 @@ class StageTimings:
     def counter(self, name: str, value: float) -> None:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + value
+
+    def counter_max(self, name: str, value: float) -> None:
+        with self._lock:
+            self.counters[name] = max(self.counters.get(name, value), value)
 
     def _add(self, sp: Span) -> None:
         with self._lock:
@@ -127,6 +132,12 @@ def span(name: str) -> Span:
 def counter(name: str, value: float) -> None:
     """Add ``value`` to the active recorder's counter ``name``."""
     recorder().counter(name, value)
+
+
+def counter_max(name: str, value: float) -> None:
+    """Keep the larger of ``value`` and the active recorder's counter
+    ``name``."""
+    recorder().counter_max(name, value)
 
 
 @contextlib.contextmanager

@@ -174,11 +174,31 @@ def _table(rng, n):
             np.where(rng.random(n) < 0.5, "+", "-"))
 
 
-@pytest.mark.parametrize("n", [0, 1, 5000])
-def test_placement_table_matches_jax(n, tmp_path):
+CHUNK = 64  # rows a chunk of the port's writer in these tests
+
+
+def _wide_table(rng, n):
+    """A placement table whose columns change width from chunk to
+    chunk: read numbers from 1 up, contigs above 2^31 in every third
+    chunk, pos 0, negative and up to 10^(chunk % 7) - 1."""
+    chunk = np.arange(n) // CHUNK
+    return (np.arange(1, n + 1),
+            np.where(chunk % 3 == 2, rng.integers(2**31, 2**40, n),
+                     rng.integers(1, 5000, n)),
+            np.where(rng.random(n) < 0.1, 0, rng.integers(
+                -150, 10 ** (chunk % 7 + 1), n) // 10),
+            np.where(rng.random(n) < 0.5, "+", "-"))
+
+
+@pytest.mark.parametrize(
+    "n", [0, 1, 5000, CHUNK - 1, CHUNK, CHUNK + 1, 7 * CHUNK + 3])
+def test_placement_table_matches_jax(n, tmp_path, monkeypatch):
     """Bytes of .readOnContig/.ctg2Read (the JAX package writes through
-    pandas here) and the parsed columns (it parses through pandas)."""
-    cols = _table(np.random.default_rng(n), n)
+    pandas here) and the parsed columns (it parses through pandas), the
+    port's writer in chunks of CHUNK rows: none, one, part of one, one
+    whole, one and a row, many."""
+    monkeypatch.setattr(tfiles, "_ROWS_PER_CHUNK", CHUNK)
+    cols = _wide_table(np.random.default_rng(n), n)
     want = str(tmp_path / "j.readOnContig")
     got = str(tmp_path / "t.readOnContig")
     jfiles.write_placement_table(want, *cols)
@@ -189,6 +209,23 @@ def test_placement_table_matches_jax(n, tmp_path):
                        tpelinks._load_rows(got), cols):
         np.testing.assert_array_equal(b, a)
         np.testing.assert_array_equal(b, c)
+
+
+@pytest.mark.parametrize("n", [0, CHUNK + 1, 5000])
+def test_read_information_matches_jax(n, tmp_path, monkeypatch):
+    """.readInformation (-r/-R): six columns, no header, the same bytes
+    as the JAX package's writer, the port's in chunks of CHUNK rows."""
+    monkeypatch.setattr(tfiles, "_ROWS_PER_CHUNK", CHUNK)
+    rng = np.random.default_rng(n)
+    readno, ctg, ctg_off, orien = _wide_table(rng, n)
+    cols = (readno, rng.integers(-1, 150, n), ctg, ctg_off,
+            rng.integers(23, 200, n), orien)
+    want = str(tmp_path / "j.readInformation")
+    got = str(tmp_path / "t.readInformation")
+    jfiles.write_read_information(want, *cols)
+    tfiles.write_read_information(got, *cols)
+    with open(want, "rb") as a, open(got, "rb") as b:
+        assert a.read() == b.read()
 
 
 def test_placement_tables_need_no_pandas(tmp_path, monkeypatch):

@@ -7,8 +7,10 @@ read passes' waits, the decoder's seconds, the merge rows and the
 ``.edge.gz`` deflate's chunks, workers and bytes are counted where the
 work happens; counters added from many threads lose nothing."""
 
+import glob
 import gzip
 import json
+import shutil
 import sys
 import threading
 
@@ -17,7 +19,7 @@ import torch
 
 import perf_e2e
 from soapdenovo_trans_tpu_torch import cli
-from soapdenovo_trans_tpu_torch.io import fastx, graph_files
+from soapdenovo_trans_tpu_torch.io import fastx, graph_files, stagefiles
 from soapdenovo_trans_tpu_torch.kernels import merge_path
 from soapdenovo_trans_tpu_torch.stages import pregraph
 from soapdenovo_trans_tpu_torch.utils import profiling
@@ -82,9 +84,10 @@ class _Counted:
 def traced(reads_cfg, tmp_path_factory):
     """One ``all`` under the profiler: (result, the trace's ``soap/``
     events by name, record_function entries, batches and passes of the
-    read-ahead, rows of every merge call)."""
+    read-ahead, rows of every merge call and the output prefix)."""
     tmp = tmp_path_factory.mktemp("traced")
-    seen = {"batches": 0, "passes": 0, "merge_rows": 0}
+    seen = {"batches": 0, "passes": 0, "merge_rows": 0,
+            "prefix": str(tmp / "out")}
     read_batches = fastx.config_read_batches
     merge = merge_path.merge_sorted_rows
 
@@ -200,6 +203,29 @@ def test_edge_deflate_counters(reads_cfg, tmp_path, monkeypatch):
     assert got["gz_bytes"] == path.stat().st_size < got["text_bytes"]
     assert 1 <= got["workers"] <= got["chunks"]
     assert got["chunks"] == -(-got["text_bytes"] // graph_files._CHUNK) > 1
+
+
+def test_placement_table_counters(reads_cfg, traced, tmp_path,
+                                  monkeypatch):
+    """A map run on the traced ``all``'s contig files records the rows
+    of .readOnContig and .ctg2Read, their chunks of ``_ROWS_PER_CHUNK``
+    rows and the most threads one table used."""
+    src = traced[3]["prefix"]
+    for path in glob.glob(src + ".*"):
+        shutil.copy(path, str(tmp_path / "m") + path[len(src):])
+    monkeypatch.setattr(stagefiles, "_ROWS_PER_CHUNK", 1 << 9)
+    args = cli.build_parser().parse_args(
+        ["map", "-s", reads_cfg, "-g", str(tmp_path / "m")])
+    rec = profiling.StageTimings()
+    with profiling.active(rec):
+        cli.run_map_cmd(args, torch.device("cpu"))
+    rows = [len((tmp_path / ("m" + ext)).read_text().splitlines()) - 1
+            for ext in (".readOnContig", ".ctg2Read")]
+    got = {name: rec.counters["map.write." + name]
+           for name in ("rows", "chunks", "workers")}
+    assert got["rows"] == sum(rows) and min(rows) > 1 << 9
+    assert got["chunks"] == sum(-(-r // (1 << 9)) for r in rows)
+    assert 1 <= got["workers"] <= got["chunks"]
 
 
 def test_spans_and_counters_go_to_the_active_recorder_only():
