@@ -728,8 +728,14 @@ def _write_read_tables(args, sres, ctg, k: int, read_ctg) -> None:
 class AllResult:
     """The four stages of ``all``, with each stage's seconds (host
     clock, devices synchronized) and peak device memory (CUDA only; on
-    a mesh, of its first device), and the run's spans (name ->
-    (seconds, calls)) and counters (name -> total)."""
+    a mesh, of its first card, where contig and scaff run), and the
+    run's spans (name -> (seconds, calls)) and counters (name -> total).
+
+    On a mesh of cards (four H100 of one host is the measured
+    multi-card deployment) the counter ``mesh.peak_bytes`` is the
+    largest peak of any card of the mesh in any stage, and
+    ``mesh.peak_bytes.<card>`` each card's; ``peak_bytes`` stays the
+    first card's."""
 
     pregraph: object
     contig: object
@@ -751,6 +757,9 @@ def run_all(args, device: torch.device, mesh=None,
     seconds: Dict[str, float] = {}
     peak: Dict[str, Optional[int]] = {}
     cuda = device.type == "cuda"
+    # on a mesh, every card's peak is read at each stage
+    cards = [] if mesh is None else [
+        d for d in dict.fromkeys(mesh.devices) if d.type == "cuda"]
 
     def sync():
         if mesh is not None:
@@ -762,12 +771,19 @@ def run_all(args, device: torch.device, mesh=None,
         sync()
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
+        for card in cards:
+            if card != device:
+                torch.cuda.reset_peak_memory_stats(card)
         with timings.stage_timer(name) as sp:
             out = fn()
             sync()
         seconds[name] = sp.seconds
         peak[name] = torch.cuda.max_memory_allocated(device) if cuda \
             else None
+        for card in cards:
+            top = torch.cuda.max_memory_allocated(card)
+            timings.counter_max("mesh.peak_bytes", top)
+            timings.counter_max(f"mesh.peak_bytes.{card}", top)
         return out
 
     with profiling.active(timings), timings.span("all"):

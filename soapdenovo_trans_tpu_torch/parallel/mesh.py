@@ -29,6 +29,16 @@ A piece moves with ``Tensor.to(device)``: nothing is copied where
 source and target are the same device, and a copy between two cards is
 asynchronous and ordered by torch on the current streams of both.  A
 copy to the host waits for its data.
+
+What the mesh does is in the run's record (``utils/profiling``): the
+spans ``mesh.route`` (``route``: the bucketing and the blocking host
+read of the sizes) and ``mesh.exchange`` (``all_to_all``: the enqueue of
+the pieces), and the counters ``mesh.exchanges``, ``mesh.exchange_bytes``
+(the pieces moved between different shards), ``mesh.peer_bytes`` (every
+byte a method of the mesh copies from one card to another: exchanged
+pieces, ``to_shard``, ``gather_rows``, ``replicate``; 0 on logical
+shards of one card) and ``mesh.shards`` (the largest mesh that
+exchanged).  Nothing of it synchronizes a device.
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ from typing import Callable, List, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 Sharded = List[torch.Tensor]
 
 
@@ -47,6 +59,17 @@ def _move(x: torch.Tensor, device) -> torch.Tensor:
     must not read a copy that is still in flight)."""
     device = torch.device(device)
     return x.to(device, non_blocking=device.type == "cuda")
+
+
+def _peer_bytes(x: torch.Tensor, device) -> int:
+    """Bytes that moving ``x`` to ``device`` copies from one card to
+    another: 0 where either end is the host or both are one card."""
+    device = torch.device(device)
+    if x.device.type != "cuda" or device.type != "cuda" or \
+            x.device.index == (device.index if device.index is not None
+                               else torch.cuda.current_device()):
+        return 0
+    return x.numel() * x.element_size()
 
 
 class Route(NamedTuple):
@@ -103,23 +126,32 @@ class Mesh:
         """send[j][s] -> recv[s][j], each piece moved to shard s's
         device."""
         recv = [[None] * self.d for _ in range(self.d)]
-        for j in range(self.d):
-            for s in range(self.d):
-                piece = send[j][s]
-                if j != s:
-                    self.exchange_bytes += piece.numel() * \
-                        piece.element_size()
-                recv[s][j] = _move(piece, self.devices[s])
+        moved = peer = 0
+        with profiling.span("mesh.exchange"):
+            for j in range(self.d):
+                for s in range(self.d):
+                    piece = send[j][s]
+                    if j != s:
+                        moved += piece.numel() * piece.element_size()
+                        peer += _peer_bytes(piece, self.devices[s])
+                    recv[s][j] = _move(piece, self.devices[s])
         self.exchanges += 1
+        self.exchange_bytes += moved
+        profiling.counter("mesh.exchanges", 1)
+        profiling.counter("mesh.exchange_bytes", moved)
+        profiling.counter("mesh.peer_bytes", peer)
+        profiling.counter_max("mesh.shards", self.d)
         return recv
 
     def route(self, owner: Sharded) -> Route:
         """Bucket every shard's records by ``owner`` ((m,) in [0, D], D
         for "to no shard") and read the bucket sizes on the host."""
-        plans = self.map(lambda s, o: bucket_by_owner(o, self.d), owner)
-        starts = self.to_host([p[1] for p in plans])
-        sizes = [[int(st[t + 1] - st[t]) for t in range(self.d)]
-                 for st in starts]
+        with profiling.span("mesh.route"):
+            plans = self.map(lambda s, o: bucket_by_owner(o, self.d),
+                             owner)
+            starts = self.to_host([p[1] for p in plans])
+            sizes = [[int(st[t + 1] - st[t]) for t in range(self.d)]
+                     for st in starts]
         return Route([p[0] for p in plans], sizes)
 
     def send(self, route: Route, payload: Sharded) -> List[list]:
@@ -146,8 +178,16 @@ class Mesh:
     def replicate(self, x: torch.Tensor) -> Sharded:
         """``x`` on every shard's device: one copy for each distinct
         device, shared by the shards that live there."""
-        copies = {dev: x.to(dev) for dev in dict.fromkeys(self.devices)}
+        copies = {}
+        for dev in dict.fromkeys(self.devices):
+            profiling.counter("mesh.peer_bytes", _peer_bytes(x, dev))
+            copies[dev] = x.to(dev)
         return [copies[dev] for dev in self.devices]
+
+    def to_shard(self, x: torch.Tensor, s: int) -> torch.Tensor:
+        """``x`` on shard ``s``'s device."""
+        profiling.counter("mesh.peer_bytes", _peer_bytes(x, self.devices[s]))
+        return x.to(self.devices[s])
 
     def split_rows(self, x, fill=None) -> Sharded:
         """Host array (R, ...) -> D contiguous row blocks of
@@ -168,6 +208,8 @@ class Mesh:
         """Shard-major concatenation on ``device`` (default: the first
         shard's)."""
         device = self.devices[0] if device is None else device
+        profiling.counter("mesh.peer_bytes",
+                          sum(_peer_bytes(x, device) for x in xs))
         return torch.cat([_move(x, device) for x in xs])
 
     def synchronize(self) -> None:

@@ -185,6 +185,19 @@ def sharded_list_rank(router: Router, prev: Sharded, exists: Sharded):
     prev: (cap,) global predecessor ids or -1 a shard; exists: (cap,)
     bool.  Returns (head global, rank, is_head), a list each.  Every
     round is one routed gather of (parent, value) pairs.
+
+    A round asks only for the lanes that may still move.  A lane whose
+    parent is itself never moves (a head's value is its own, and 0 in
+    the second pass); a lane whose parent does not move in a round
+    points at such a fixed point from then on, so after that round's
+    update neither its parent nor its value changes again (a minimum
+    taken twice, or 0 added).  Such lanes leave the round: the work of
+    a round is the lanes still moving, not the id space, and the
+    doubling ends when none is left, after about log2 of the longest
+    chain rounds instead of log2 of the id space, with the same result
+    as every round over every lane.  (On a cycle whose length is no
+    power of two the first pass's pointers never rest, and it runs
+    every round.)
     """
     mesh, m = router.mesh, router.cap
     steps = max(1, (mesh.d * m).bit_length())
@@ -192,12 +205,25 @@ def sharded_list_rank(router: Router, prev: Sharded, exists: Sharded):
         lambda s, p: s * m + torch.arange(m, device=p.device), prev)
 
     def doubled(parent, val, combine):
+        # one row a lane, (parent, value), updated in place; the reads
+        # of a round are queued before its writes on every card
+        state = [torch.stack(pv, -1) for pv in zip(parent, val)]
+        moving = mesh.map(lambda s, p, i: (p != i).nonzero()[:, 0],
+                          parent, self_idx)
+
+        def update(s, x, lanes, got):
+            old = x[lanes]
+            x[lanes] = torch.stack([got[:, 0], combine(old[:, 1],
+                                                       got[:, 1])], -1)
+            return lanes[got[:, 0] != old[:, 0]]
+
         for _ in range(steps):
-            got = router.gather(
-                [torch.stack(pv, -1) for pv in zip(parent, val)], parent)
-            val = [combine(v, g[:, 1]) for v, g in zip(val, got)]
-            parent = [g[:, 0] for g in got]
-        return parent, val
+            if not any(lanes.numel() for lanes in moving):
+                break
+            got = router.gather(state, mesh.map(
+                lambda s, x, lanes: x[lanes, 0], state, moving))
+            moving = mesh.map(update, state, moving, got)
+        return [x[:, 0] for x in state], [x[:, 1] for x in state]
 
     # pass 1: cycle detection + min-id propagation (parent pointers are
     # always valid ids, so the gathers never miss)

@@ -60,8 +60,8 @@ def shard_index(mesh: Mesh, index: map_stage.ContigIndex,
         dev = mesh.devices[s]
         pad = cap - per[s]
         rows = slice(starts[s], starts[s + 1])
-        keys = index.keys[rows].to(dev)
-        pay = payload[rows].to(dev)
+        keys = mesh.to_shard(index.keys[rows], s)
+        pay = mesh.to_shard(payload[rows], s)
         return (torch.cat([keys, keys.new_full((pad, keys.shape[1]),
                                                dictionary.SENTINEL)]),
                 torch.cat([pay, pay.new_full((pad, 3), -1)]),

@@ -107,11 +107,18 @@ def _take(x: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _local_candidates(keys, live_row, k: int):
+def _out_cov(l_cov, r_cov) -> torch.Tensor:
+    """(2cap, 4) coverage of every arc slot: slot (2i, b) <- r_cov[i, b]
+    (fwd node), (2i+1, b) <- l_cov[i, comp(b)] (rc node); comp(b) =
+    b^2."""
+    return torch.stack([r_cov, l_cov[:, [2, 3, 0, 1]]], 1).reshape(-1, 4)
+
+
+def _local_candidates(keys, live_row, l_cov, r_cov, k: int):
     """Successor-candidate queries of a block of table rows: orient
     (fwd + revcomp), extend by every base, canonicalize.  Dead sources
-    need no successors: their queries are sentinels, which go to no
-    shard."""
+    and arc slots without coverage need no successor (no arc can
+    exist there): their queries are sentinels, which go to no shard."""
     w = keys.shape[-1]
     ori = torch.stack([keys, bits.reverse_complement(keys, k)],
                       1).reshape(-1, w)
@@ -119,8 +126,9 @@ def _local_candidates(keys, live_row, k: int):
     base4 = torch.arange(4, device=keys.device).expand(m, 4)
     ext = bits.next_kmer(ori[:, None, :].expand(m, 4, w), base4, k)
     can, use_rc = bits.canonical(ext.reshape(-1, w), k)
-    live = live_row.repeat_interleave(8)
-    return torch.where(live[:, None], can, dictionary.SENTINEL), use_rc
+    ask = live_row.repeat_interleave(8) & \
+        (_out_cov(l_cov, r_cov).reshape(-1) > 0)
+    return torch.where(ask[:, None], can, dictionary.SENTINEL), use_rc
 
 
 def build_dbg_sharded(mesh: Mesh, routers: Routers, st: ShardedTable,
@@ -137,8 +145,9 @@ def build_dbg_sharded(mesh: Mesh, routers: Routers, st: ShardedTable,
     for off in range(0, cap, dbg_mod._CHUNK_ROWS):
         blk = slice(off, off + dbg_mod._CHUNK_ROWS)
         can, rc = zip(*mesh.map(
-            lambda s, keys, live: _local_candidates(keys[blk], live[blk], k),
-            st.keys, live_row))
+            lambda s, keys, live, l_cov, r_cov: _local_candidates(
+                keys[blk], live[blk], l_cov[blk], r_cov[blk], k),
+            st.keys, live_row, st.l_cov, st.r_cov))
         got = routers.row.lookup(st.keys, st.n, deleted, list(can), k=k)
         for s in range(mesh.d):
             rows[s].append(got[s])
@@ -149,10 +158,7 @@ def build_dbg_sharded(mesh: Mesh, routers: Routers, st: ShardedTable,
         succ = torch.where(r >= 0, 2 * r + torch.cat(use_rc[s]), -1)
         succ = succ.view(2 * cap, 4)
         live = live_r.repeat_interleave(2)
-        # slot (2i, b) <- r_cov[i, b] (fwd node), (2i+1, b) <-
-        # l_cov[i, comp(b)] (rc node); comp(b) = b^2
-        out_cov = torch.stack([r_cov, l_cov[:, [2, 3, 0, 1]]],
-                              1).reshape(2 * cap, 4)
+        out_cov = _out_cov(l_cov, r_cov)
         exists = (out_cov > 0) & (succ >= 0) & live[:, None]
         succ = torch.where(exists, succ, -1)
         out_deg = exists.sum(-1)

@@ -268,3 +268,79 @@ def test_owner_boundaries_equal_jax(k):
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
         assert (np.diff(got.astype(np.int64)) > 0).all()
+
+
+def _long_chains(rng, n, lengths, cycles, descending=False):
+    """Chains and cycles of the given lengths over a random permutation
+    of n ids; the rest do not exist.  ``descending``: every chain's ids
+    fall from its head to its tail, so each id is the least of those
+    from it to the head from the start."""
+    prev = np.full(n, -1, np.int64)
+    exists = np.zeros(n, bool)
+    perm = rng.permutation(n)
+    pos = 0
+    for ln, closed in [(x, False) for x in lengths] + \
+            [(x, True) for x in cycles]:
+        chain = perm[pos:pos + ln]
+        if descending:
+            chain = np.sort(chain)[::-1]
+        pos += ln
+        exists[chain] = True
+        for a, b in zip(chain[:-1], chain[1:]):
+            prev[b] = a
+        if closed:
+            prev[chain[0]] = chain[-1]
+    return prev, exists
+
+
+@pytest.mark.parametrize("lengths,cycles,descending", [
+    ((300, 17, 1, 2), (), False),
+    ((300, 17, 1, 2), (), True),
+    ((5, 64, 65), (1, 2, 64), False),
+    ((), (3, 100), False),
+    ((), (), False),
+], ids=["chains", "descending_chains", "chains_and_cycles", "cycles",
+        "nothing"])
+def test_port_list_rank_stops_when_a_round_changes_nothing(
+        monkeypatch, lengths, cycles, descending):
+    """A lane leaves the doubling once its pointer rests, and the
+    doubling ends when no lane moves: it answers as the dense ranking
+    does, in a few rounds more than log2 of the longest chain rather
+    than log2 of the id space, each round asking for the lanes that
+    have a predecessor at most.  On a cycle whose length is no power of
+    two the pointers of the first pass never come to rest, so that pass
+    runs every round; the second pass, on the cycles broken into
+    chains, stops early all the same."""
+    d, cap = 4, 1024
+    rng = np.random.default_rng(400 + len(lengths) + 3 * len(cycles))
+    prev, exists = _long_chains(rng, d * cap, lengths, cycles, descending)
+    router = tsg.Router(cpu_mesh(d), cap)
+    gathers = []
+    gather = router.gather
+    monkeypatch.setattr(router, "gather", lambda x, idx: (
+        gathers.append(sum(i.numel() for i in idx)), gather(x, idx))[1])
+    got = tsg.sharded_list_rank(router, shards(prev.reshape(d, cap)),
+                                shards(exists.reshape(d, cap), torch.bool))
+    want = tranking.list_rank(torch.from_numpy(prev),
+                              torch.from_numpy(exists))
+    for name, g, w in zip(("head", "rank", "is_head"), got, want):
+        np.testing.assert_array_equal(torch.cat(g).numpy()[exists],
+                                      w.numpy()[exists], err_msg=name)
+    np.testing.assert_array_equal(torch.cat(got[2]).numpy(),
+                                  want[2].numpy())
+    longest = max((*lengths, *cycles, 1))
+    steps = (d * cap).bit_length()
+    # a pass that stops early: the rounds that move something, and one
+    # that does not
+    short = longest.bit_length() + 1
+    restless = any(c & (c - 1) for c in cycles)
+    rounds = len(gathers) - 1  # the gather between the passes
+    assert rounds <= (steps if restless else short) + short < 2 * steps
+    # every lane, once, between the passes; in the rounds only lanes
+    # with a predecessor, fewer as their pointers come to rest
+    assert d * cap in gathers
+    linked = int((prev >= 0).sum())
+    asked = sum(gathers) - d * cap
+    assert asked <= rounds * linked
+    if linked and not restless:
+        assert asked < rounds * linked

@@ -146,6 +146,36 @@ def test_dbg_matches_jax(jmesh):
     assert stacked(got.exists).sum() > 100
 
 
+@pytest.mark.parametrize("deleted_every", [0, 7], ids=["none", "some"])
+def test_dbg_looks_up_only_covered_live_slots(jmesh, monkeypatch,
+                                              deleted_every):
+    """An arc slot without coverage can hold no arc, so its successor is
+    not looked up: the routed lookups carry one query a covered slot of
+    a live row, and the graph is the JAX package's all the same."""
+    fx = Fixture(jmesh, 3, True)
+    deleted = np.zeros((D, fx.cap), bool)
+    if deleted_every:
+        deleted.reshape(-1)[::deleted_every] = True
+    jdel = jnp.asarray(deleted.astype(np.int32))
+    tdel = [torch.from_numpy(x) for x in deleted]
+    asked = []
+    lookup = fx.routers.row.lookup
+
+    def counted(keys, n, dead, queries, k):
+        asked.append(sum(int((q != 0xFFFFFFFF).any(-1).sum())
+                         for q in queries))
+        return lookup(keys, n, dead, queries, k=k)
+
+    monkeypatch.setattr(fx.routers.row, "lookup", counted)
+    got = tsp.build_dbg_sharded(fx.mesh, fx.routers, fx.st, tdel, K)
+    want = jsp.build_dbg_sharded(jmesh, fx.jrouters, fx.jst, jdel, K)
+    for f in got._fields:
+        np.testing.assert_array_equal(
+            stacked(getattr(got, f)), np.asarray(getattr(want, f)), f)
+    covered = (stacked(got.out_cov) > 0) & stacked(got.live)[..., None]
+    assert sum(asked) == covered.sum() < 8 * stacked(got.live).sum() / 2
+
+
 def test_tip_clip_matches_jax(jmesh):
     fx = Fixture(jmesh, 5, True)
     want = jsp.clip_tip_kmers_sharded(jmesh, fx.jrouters, fx.jst,

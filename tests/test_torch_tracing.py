@@ -5,7 +5,10 @@ record says; the stages' ``phase_seconds`` and ``stage_seconds`` are the
 span totals; with no profiler no ``record_function`` is entered; the
 read passes' waits, the decoder's seconds, the merge rows and the
 ``.edge.gz`` deflate's chunks, workers and bytes are counted where the
-work happens; counters added from many threads lose nothing."""
+work happens; a mesh's routes and exchanges are spans inside the stages
+that exchange, and its counters are the mesh's own totals, while a
+one-device run records none of them; counters added from many threads
+lose nothing."""
 
 import glob
 import gzip
@@ -226,6 +229,80 @@ def test_placement_table_counters(reads_cfg, traced, tmp_path,
     assert got["rows"] == sum(rows) and min(rows) > 1 << 9
     assert got["chunks"] == sum(-(-r // (1 << 9)) for r in rows)
     assert 1 <= got["workers"] <= got["chunks"]
+
+
+MESH_SPANS = ("mesh.route", "mesh.exchange")
+MESH_COUNTERS = ("mesh.exchanges", "mesh.exchange_bytes", "mesh.peer_bytes",
+                 "mesh.shards")
+
+
+@pytest.fixture(scope="module")
+def traced_mesh(reads_cfg, tmp_path_factory):
+    """One ``all`` on four logical CPU shards under the profiler: (result,
+    the trace's ``soap/`` intervals by name, the run's mesh)."""
+    tmp = tmp_path_factory.mktemp("traced_mesh")
+    meshes = []
+    make_mesh = cli.mesh_from_env
+
+    def keep_mesh():
+        meshes.append(make_mesh())
+        return meshes[-1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        _shrink(mp)
+        mp.setenv("SOAPDENOVO_TORCH_DEVICE", "cpu,cpu,cpu,cpu")
+        mp.setattr(cli, "mesh_from_env", keep_mesh)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            res = _all(reads_cfg, tmp / "out")
+    path = tmp / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = {}
+    for ev in json.loads(path.read_text())["traceEvents"]:
+        name = ev.get("name", "")
+        if ev.get("ph") == "X" and name.startswith(profiling.PREFIX):
+            start = float(ev["ts"])
+            events.setdefault(name[len(profiling.PREFIX):], []).append(
+                (start, start + float(ev["dur"])))
+    assert len(meshes) == 1
+    return res, events, meshes[0]
+
+
+def test_mesh_routes_and_exchanges_are_spans_inside_pregraph_and_map(
+        traced_mesh):
+    res, events, _ = traced_mesh
+    for name in MESH_SPANS:
+        assert len(events[name]) == res.spans[name][1] > 0, name
+        inside = {stage: sum(ps <= s and e <= pe for s, e in events[name]
+                             for ps, pe in events[stage])
+                  for stage in ("pregraph", "map")}
+        # every one inside a stage that exchanges, and both stages do
+        assert sum(inside.values()) == len(events[name]), name
+        assert min(inside.values()) > 0, (name, inside)
+    # a route's host read is not part of an exchange's enqueue
+    for s, e in events["mesh.exchange"]:
+        assert not any(rs <= s and e <= re_ for rs, re_ in
+                       events["mesh.route"])
+
+
+def test_mesh_counters_are_the_mesh_totals(traced_mesh):
+    res, _, mesh = traced_mesh
+    got = {name: res.counters[name] for name in MESH_COUNTERS}
+    assert got == {"mesh.exchanges": mesh.exchanges,
+                   "mesh.exchange_bytes": mesh.exchange_bytes,
+                   "mesh.peer_bytes": 0, "mesh.shards": 4}
+    assert mesh.exchanges == res.pregraph.exchanges + res.map.exchanges > 0
+    assert mesh.exchange_bytes == \
+        res.pregraph.exchange_bytes + res.map.exchange_bytes > 0
+    # logical shards of one device copy nothing between cards, and only
+    # a mesh of cards reads their peaks
+    assert not [k for k in res.counters if k.startswith("mesh.peak_bytes")]
+
+
+def test_one_device_records_no_mesh_span_or_counter(traced):
+    res, events, _, _ = traced
+    assert not [k for k in [*res.spans, *res.counters, *events]
+                if k.startswith("mesh.")]
 
 
 def test_spans_and_counters_go_to_the_active_recorder_only():

@@ -5,24 +5,32 @@ of ``BENCHMARK.json`` assembled with and without ``torch.profiler``.
     python3 tools/prof_spans.py [--cells a,b] [--seed N] [--rounds R]
         [--device cuda] [--pairs N --warmup-pairs N --transcripts N]
 
-For each cell (default: every cell), on the cell's dataset made from
-``--seed`` as ``port_bench/run.py`` makes it, after its warm-up: R rounds
-of one assembly without the profiler and one under it (CPU and CUDA
-activities, ``cli.main(["all", ...])`` inside a window span).  From each
-traced assembly's exported trace: the device's busy time (the union of
-every kernel, copy and memset interval) and its idle gaps inside the
-window; the ten longest gaps, each named by the innermost ``soap/`` span
-open at its middle; the idle seconds by innermost span; the Tour-Bus wave
-kernels' device seconds and launches by name (the names that
-``port_bench/metrics/wave.roofline.py`` reads; none at ``-M 0``); and the share
-of the idle time that lies inside a span below the stage level (a span
-whose name has a dot, such as ``pregraph.write`` or ``reads.wait``).
-From each assembly: the stage seconds, spans and counters the port
-recorded, and the spans an assembly enters.  Then, with no profiler,
-the host nanoseconds a span and a counter cost.  One JSON line a cell;
-the same goes to ``chiprun_out/prof_spans.jsonl``.  ``--device cpu``
-with small ``--pairs`` rehearses the path on the CPU.  Imports nothing
-of JAX.
+For each cell (default: every cell the visible cards can run), on the
+cell's dataset made from ``--seed`` as ``port_bench/run.py`` makes it,
+after its warm-up: R rounds of one assembly without the profiler and one
+under it (CPU and CUDA activities, ``cli.main(["all", ...])`` inside a
+window span).  From each traced assembly's exported trace: the device's
+busy time (the union of every kernel, copy and memset interval) and its
+idle gaps inside the window; the ten longest gaps, each named by the
+innermost ``soap/`` span open at its middle; the idle seconds by
+innermost span; the Tour-Bus wave kernels' device seconds and launches
+by name (the names that ``port_bench/metrics/wave.roofline.py`` reads;
+none at ``-M 0``); the copies' device seconds, events and bytes by kind
+(``Memcpy PtoP``: from one card to another); and the share of the idle
+time that lies inside a span below the stage level (a span whose name
+has a dot, such as ``pregraph.write`` or ``reads.wait``).  From each
+assembly: the stage seconds, spans and counters the port recorded, and
+the spans an assembly enters; on a mesh, the split of its exchanges
+(``mesh``: the route and exchange spans, the peer copies' device seconds
+and bytes beside the port's ``mesh.peer_bytes``, their share of NVLink
+as ``port_bench/metrics/mesh.exchange.roofline.py`` reads it, and every
+card's peak).  A cell of one chip runs on one card
+(``SOAPDENOVO_TORCH_NO_SHARD``), as ``port_bench/run.py`` runs it; a
+cell of four on the mesh over every visible card.  Then, with no
+profiler, the host nanoseconds a span and a counter cost.  One JSON line
+a cell; the same goes to ``chiprun_out/prof_spans.jsonl``.  ``--device
+cpu`` (``cpu,cpu,cpu,cpu`` for a mesh) with small ``--pairs`` rehearses
+the path on the CPU.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -53,11 +61,12 @@ WINDOW = "prof_spans/assembly"
 
 def read_trace(path: str, wave_kernels=frozenset()):
     """(device intervals, soap spans as (name, start, end), window, the
-    [device seconds, launches] of each of ``wave_kernels`` by name) of an
-    exported trace, in microseconds but for the kernels' seconds."""
+    [device seconds, launches] of each of ``wave_kernels`` by name, the
+    [device seconds, events, bytes] of the copies by kind) of an exported
+    trace, in microseconds but for the kernels' and copies' seconds."""
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
-    device, spans, window, wave = [], [], None, {}
+    device, spans, window, wave, copies = [], [], None, {}, {}
     for ev in events:
         if ev.get("ph") != "X":
             continue
@@ -70,11 +79,16 @@ def read_trace(path: str, wave_kernels=frozenset()):
                 tot = wave.setdefault(kernel, [0.0, 0])
                 tot[0] += (e - s) / 1e6
                 tot[1] += 1
+            if ev.get("cat") == "gpu_memcpy":
+                tot = copies.setdefault(kernel, [0.0, 0, 0])
+                tot[0] += (e - s) / 1e6
+                tot[1] += 1
+                tot[2] += int(ev.get("args", {}).get("bytes", 0))
         elif name.startswith(profiling.PREFIX):
             spans.append((name[len(profiling.PREFIX):], s, e))
         elif name == WINDOW:
             window = (s, e)
-    return device, spans, window, wave
+    return device, spans, window, wave, copies
 
 
 def overlap(a, b) -> float:
@@ -151,14 +165,38 @@ def span_cost_ns(n: int = 200_000) -> dict:
     return out
 
 
+def mesh_split(spans, counters, copies) -> dict:
+    """A mesh run's exchanges: the route and exchange spans (seconds,
+    calls), the peer copies' device seconds, events and bytes beside the
+    port's count of the bytes, their share of NVLink, and every card's
+    peak; empty without a mesh."""
+    if "mesh.shards" not in counters:
+        return {}
+    peer = copies.get("Memcpy PtoP", [0.0, 0, 0])
+    roof = bench.load_metric("mesh.exchange.roofline")
+    return {
+        "route": spans.get("mesh.route"),
+        "exchange": spans.get("mesh.exchange"),
+        "peer_copy_s": peer[0], "peer_copy_events": peer[1],
+        "peer_copy_bytes": peer[2],
+        **{k[len("mesh."):]: v for k, v in counters.items()
+           if k.startswith("mesh.")},
+        "roofline": tr.roofline_share(counters.get("mesh.peer_bytes", 0),
+                                      peer[0], roof.NVLINK_BYTES_PER_S)}
+
+
 def one_cell(name: str, args) -> dict:
     cell, config, mix, _, _ = bench.cell_spec(name)
     mix = {**mix, "transcripts": args.transcripts or mix["transcripts"]}
     os.environ["SOAPDENOVO_TORCH_DEVICE"] = args.device
-    os.environ["SOAPDENOVO_TORCH_NO_SHARD"] = "1"
+    # as port_bench/run.py: one card for a cell of one chip
+    if cell["chips"] == 1:
+        os.environ["SOAPDENOVO_TORCH_NO_SHARD"] = "1"
+    else:
+        os.environ.pop("SOAPDENOVO_TORCH_NO_SHARD", None)
     from soapdenovo_trans_tpu_torch import cli
 
-    device = torch.device(args.device)
+    device = torch.device(args.device.split(",")[0])
     cuda = device.type == "cuda"
 
     def sync():
@@ -189,7 +227,8 @@ def one_cell(name: str, args) -> dict:
             res = asm.run()
             plain = {"assembly_s": time.time() - t0,
                      "stage_s": dict(res.stage_seconds),
-                     "spans": res.spans, "counters": res.counters}
+                     "spans": res.spans, "counters": res.counters,
+                     "mesh": mesh_split(res.spans, res.counters, {})}
             res = None
             gc.collect()
             t0 = time.time()
@@ -199,7 +238,8 @@ def one_cell(name: str, args) -> dict:
             traced_s = time.time() - t0
             path = os.path.join(workdir, "trace.json")
             prof.export_chrome_trace(path)
-            device_iv, spans, window, wave = read_trace(path, wave_kernels)
+            device_iv, spans, window, wave, copies = read_trace(
+                path, wave_kernels)
             os.remove(path)
             rounds.append({
                 "untraced": plain,
@@ -210,6 +250,9 @@ def one_cell(name: str, args) -> dict:
                            "wave_kernels": wave,
                            "wave_kernels_s": sum(v[0] for v in
                                                  wave.values()),
+                           "copies": copies,
+                           "mesh": mesh_split(res.spans, res.counters,
+                                              copies),
                            **idle_report(device_iv, spans, window)},
                 "spans_per_assembly": sum(c for _, c in res.spans.values())})
             res = prof = None
@@ -241,9 +284,13 @@ def main() -> int:
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         print("prof_spans: torch sees no CUDA device", file=sys.stderr)
         return 1
+    # by default every cell the visible cards can run
+    cards = torch.cuda.device_count() if args.device.startswith("cuda") \
+        else float("inf")
     names = [c for c in args.cells.split(",") if c] or [
         w["name"] for w in bench.load_json(
-            os.path.join(bench.ROOT, "BENCHMARK.json"))["workloads"]]
+            os.path.join(bench.ROOT, "BENCHMARK.json"))["workloads"]
+        if w["chips"] <= cards]
     os.makedirs(os.path.join(bench.ROOT, "chiprun_out"), exist_ok=True)
     for name in names:
         line = json.dumps(one_cell(name, args))
